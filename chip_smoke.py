@@ -1,0 +1,510 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``vcoder_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --profile        # also torch.profiler over two requests
+
+Phases, in order; any failure exits non-zero:
+
+1. Device: the card's name and power limit from ``nvidia-smi``.
+2. Build: every ``vcoder_tpu_torch/csrc/*.cu`` with ``nvcc`` for ``sm_90a``,
+   one process per source, in parallel, into ``vcoder_tpu_torch/_build/``.
+3. Kernels against their plain PyTorch versions at the main path's shapes,
+   in bf16, each with its time, its plain version's time, one PyTorch call
+   computing the same function as a yardstick, and its bound.
+4. Main path at full width: VCoder-DS-7B with seeded random bf16 weights
+   serves 3 requests (RGB + seg + depth, non-square, made from a numpy seed)
+   through ``process_images``, ``tokenizer_depth_seg_token`` and
+   ``VCoderForCausalLM.generate``, greedy with EOS disabled. The launch
+   counters, set to 0 just before and read just after, must show 32
+   ``flash_fwd`` launches per prefill and 23 ViT-block launches per tower
+   pass.
+5. The checkpoint entry point: ``save_pretrained`` writes a small DS
+   checkpoint, ``load_pretrained_model`` loads it on the card and
+   ``generate`` runs on it; its prefill logits through the kernels agree
+   with the plain route.
+
+The line before the last is a JSON object ``{"kernels": [...]}``; the last
+line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
+package beside this script, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+# Published dense peaks of one H100 SXM (NVIDIA data sheet), at 700 W.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float):
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_device() -> str:
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    log(out[0])
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    return out[0]
+
+
+def phase_build() -> None:
+    from vcoder_tpu_torch.ops import _kernels
+
+    t0 = time.perf_counter()
+    secs = _kernels.build()
+    log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
+        f"wall {time.perf_counter() - t0:.2f} s")
+    for name, text in _kernels.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"  ptxas[{name}] {line.strip()}")
+
+
+def _flash_case(name, B, T, S, H, KH, D, *, causal, n_valid=None, holes=False,
+                dead_row=False, seed=0):
+    """Inputs for one flash-attention comparison; returns a dict."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    dev = "cuda"
+
+    def randn(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, torch.bfloat16)
+
+    q, k, v = randn(B, T, H, D), randn(B, S, KH, D), randn(B, S, KH, D)
+    n_valid = T if n_valid is None else n_valid
+    pos = np.zeros((B, T), np.int32)
+    pos[:, :n_valid] = np.arange(n_valid) + (S - T if n_valid == T else 0)
+    mask = np.zeros((B, S), np.int32)
+    mask[:, : (pos.max() + 1) if causal else S] = 1
+    if holes:
+        mask[:, rng.rand(S) < 0.2] = 0
+    if dead_row:
+        # Batch row 1, query 0 sees keys 0..pos[1,0]: hide them all.
+        mask[1, : pos[1, 0] + 1] = 0
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return dict(name=name, q=q, k=k, v=v, pos=t(pos), mask=t(mask), causal=causal,
+                np_pos=pos, np_mask=mask)
+
+
+def check_flash(case: dict, report: list) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from vcoder_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, pos, mask, causal = (case[x] for x in ("q", "k", "v", "pos", "mask", "causal"))
+    B, T, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    out, lse = fa.launch_flash_fwd(q, k, v, pos, mask, causal=causal, scale=D**-0.5)
+    ref_out, ref_lse = fa.flash_attention_ref(q, k, v, pos, mask, causal=causal)
+    torch.cuda.synchronize()
+    err = (out.float() - ref_out.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    # bf16 output: the kernel rounds P per 64-key tile against the running
+    # max, the plain version against the final max; both round the output.
+    tol, lse_tol = 2e-2, 1e-3
+    ok = err <= tol and lse_err <= lse_tol and torch.isfinite(out.float()).all().item()
+    log(f"kernel {case['name']}: max_abs_err {err:.3e} (tol {tol}) lse_err {lse_err:.3e} "
+        f"(tol {lse_tol}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{case['name']}: kernel disagrees with its plain version")
+    ms = cuda_ms(lambda: fa.launch_flash_fwd(q, k, v, pos, mask, causal=causal, scale=D**-0.5))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, pos, mask, causal=causal), iters=5)
+    # Yardstick: SDPA on the same inputs with the same boolean mask.
+    kpos = torch.arange(S, device="cuda")
+    bmask = mask[:, None, :].bool()
+    if causal:
+        bmask = bmask & (kpos[None, None, :] <= pos[:, :, None])
+    bmask = bmask[:, None]  # [B,1,T,S]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=bmask, enable_gqa=(H != KH)))
+    # Work this data needs: each query row against its visible keys.
+    np_pos, np_mask = case["np_pos"], case["np_mask"]
+    vis = np.broadcast_to(np_mask[:, None, :].astype(bool), (B, T, S))
+    if causal:
+        vis = vis & (np.arange(S)[None, None, :] <= np_pos[:, :, None])
+    pairs = float(vis.sum()) * H
+    n_keys = (int(np_pos.max()) + 1) if causal else S
+    flops = 4.0 * D * pairs
+    nbytes = (2 * B * T * H * D * 2 + 2 * B * n_keys * KH * D * 2 + B * H * T * 4
+              + B * T * 4 + B * S * 4)
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"  {case['name']}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  "
+        f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    if not case.get("report"):
+        return
+    report.append(dict(name="flash_fwd", route="cuda",
+                       source="vcoder_tpu_torch/csrc/flash_fwd.cu",
+                       replaces="vcoder_tpu/ops/flash_attention.py:216",
+                       launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, status="ok"))
+
+
+def check_vit_block(report: list) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from vcoder_tpu_torch.ops import vit_attention as va
+
+    B, T, Dm, H = 3, 577, 1024, 16
+    dh = Dm // H
+    rng = np.random.RandomState(1)
+
+    def randn(*shape, s=1.0):
+        return torch.from_numpy((rng.randn(*shape) * s).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+
+    layer = {n: randn(Dm, Dm, s=0.03) for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
+    layer.update({n: randn(Dm, s=0.1) for n in ("q_bias", "k_bias", "v_bias")})
+    x = randn(B, T, Dm)
+    wqkv_t, bqkv, wo_t = va.repack_block(layer, H)
+    y = va.fused_block_attention(x, wqkv_t, bqkv, wo_t, n_heads=H)
+    va.launches = 0  # comparison launches do not count
+    ref = va.fused_block_attention_ref(x, wqkv_t, bqkv, wo_t, n_heads=H)
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    tol = 2e-2 * max(1.0, scale)  # bf16 rounding of qkv, P and o, relative to |y|
+    ok = err <= tol and torch.isfinite(y.float()).all().item()
+    log(f"kernel vit_block: max_abs_err {err:.3e} (tol {tol:.3e}, max|ref| {scale:.3f}) "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("vit_block: kernels disagree with the plain version")
+    ms = cuda_ms(lambda: va.fused_block_attention(x, wqkv_t, bqkv, wo_t, n_heads=H))
+    va.launches = 0
+    plain_ms = cuda_ms(lambda: va.fused_block_attention_ref(x, wqkv_t, bqkv, wo_t, n_heads=H),
+                       iters=5)
+    wqkv, wo = wqkv_t.t().contiguous(), wo_t.t().contiguous()
+    bq = bqkv.to(torch.bfloat16)
+
+    def library():
+        qkv = torch.addmm(bq, x.view(B * T, Dm), wqkv).view(B, T, 3, H, dh)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        o = F.scaled_dot_product_attention(q, k, v, scale=1.0)
+        return o.transpose(1, 2).reshape(B * T, Dm) @ wo
+
+    lib_ms = cuda_ms(library)
+    M = B * T
+    flops = 2.0 * M * Dm * 3 * Dm + 4.0 * B * H * T * T * dh + 2.0 * M * Dm * Dm
+    nbytes = M * Dm * 2 * 2 + 4 * Dm * Dm * 2 + 3 * Dm * 4
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"  vit_block: kernels {ms:.4f} ms  plain {plain_ms:.4f} ms  addmm+sdpa+mm {lib_ms:.4f} ms  "
+        f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    report.append(dict(name="vit_block", route="cuda",
+                       source="vcoder_tpu_torch/csrc/gemm_bias.cu",
+                       replaces="vcoder_tpu/ops/vit_attention.py:52",
+                       launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, status="ok"))
+
+
+def phase_kernels(report: list) -> None:
+    # The decoder prefill: T=1280 rows, 1201 valid, a cache of S=1280+32.
+    main = _flash_case("flash_fwd causal T=1280 (1201 valid) S=1312 H=KH=32 D=128",
+                       1, 1280, 1312, 32, 32, 128, causal=True, n_valid=1201)
+    main["report"] = True
+    check_flash(main, report)
+    check_flash(_flash_case("flash_fwd GQA 8q/2kv, kv_mask holes, a fully-masked row, S>T",
+                            2, 200, 333, 8, 2, 128, causal=True, holes=True,
+                            dead_row=True, seed=2), report)
+    check_flash(_flash_case("flash_fwd d64 bidirectional B=3 T=S=577 H=16",
+                            3, 577, 577, 16, 16, 64, causal=False, seed=3), report)
+    check_vit_block(report)
+
+
+def _images(rng, h, w):
+    rgb = rng.randint(0, 256, (h, w, 3), dtype=np.uint8)
+    seg = np.repeat(np.repeat(rng.randint(0, 256, (h // 16 + 1, w // 16 + 1, 3),
+                                          dtype=np.uint8), 16, 0), 16, 1)[:h, :w]
+    depth = (np.linspace(0, 255, w)[None, :] * np.ones((h, 1))).astype(np.uint8)
+    return rgb, seg, depth
+
+
+PROMPT = ("A chat between a curious human and an artificial intelligence assistant. "
+          "The assistant gives helpful, detailed, and polite answers to the human's "
+          "questions. USER: <depth>\n<seg>\n<image>\nWhat objects can be seen in the "
+          "image? Perceive as done for panoptic segmentation. ASSISTANT:")
+
+
+def _serve(model, tok, pictures, max_new_tokens):
+    """One request, end to end: preprocess, tokenize, generate."""
+    import torch
+
+    from vcoder_tpu_torch.mm_tokens import tokenizer_depth_seg_token
+    from vcoder_tpu_torch.preprocess import process_images
+
+    rgb, seg, depth = pictures
+    ids = tokenizer_depth_seg_token(PROMPT, tok)
+    px = [process_images([a], dtype=torch.bfloat16, device="cuda") for a in (rgb, seg, depth)]
+    res = model.generate([ids], *px, max_new_tokens=max_new_tokens)
+    torch.cuda.synchronize()
+    return ids, res
+
+
+def phase_main_path(report: list) -> dict:
+    import torch
+
+    from vcoder_tpu_torch.builder import VCoderForCausalLM
+    from vcoder_tpu_torch.config import VCoderConfig
+    from vcoder_tpu_torch.models import vcoder as model_mod
+    from vcoder_tpu_torch.multimodal import build_splice_plan
+    from vcoder_tpu_torch.ops import flash_attention as fa
+    from vcoder_tpu_torch.ops import vit_attention as va
+    from vcoder_tpu_torch.simple_tokenizer import SimpleTokenizer
+
+    cfg = VCoderConfig.standard("vcoder_ds_llava", "7b")
+    # EOS off (an id argmax never emits): every request decodes all tokens.
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, eos_token_id=-1))
+    t0 = time.perf_counter()
+    params = model_mod.init_vcoder_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _flat(params).values())
+    log(f"main path: VCoder-DS-7B random bf16 weights, {n_params / 1e9:.3f} B params, "
+        f"init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    model = VCoderForCausalLM(cfg, params)
+    tok = SimpleTokenizer.build_from_texts([PROMPT])
+    rng = np.random.RandomState(0)
+    _serve(model, tok, _images(rng, 300, 420), 2)  # warm-up (cuBLAS, allocator)
+
+    sizes = [(480, 640), (720, 540), (375, 500)]
+    max_new = 32
+    fa.launches = 0
+    va.launches = 0
+    reqs, prefills = [], 0
+    for h, w in sizes:
+        pictures = _images(rng, h, w)
+        t0 = time.perf_counter()
+        ids, first = _serve(model, tok, pictures, 1)
+        ttft = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, res = _serve(model, tok, pictures, max_new)
+        total = time.perf_counter() - t0
+        prefills += 2
+        seqs = res.sequences
+        ok = (seqs.shape == (1, max_new) and int(res.num_generated[0]) == max_new
+              and int(seqs.min()) >= 0 and int(seqs.max()) < cfg.text.vocab_size)
+        if not ok:
+            raise SystemExit(f"main path: bad output {seqs} {res.num_generated}")
+        decode_tps = (max_new - 1) / max(total - ttft, 1e-9)
+        reqs.append(dict(hw=[h, w], prompt_ids=len(ids), ttft_ms=ttft * 1e3,
+                         total_ms=total * 1e3, decode_tok_s=decode_tps,
+                         tokens=seqs[0, :8].tolist()))
+        log(f"  request {h}x{w}: {len(ids)} prompt ids, TTFT {ttft * 1e3:.1f} ms, "
+            f"{max_new} tokens in {total * 1e3:.1f} ms, decode {decode_tps:.1f} tok/s, "
+            f"first tokens {seqs[0, :8].tolist()}")
+    n_flash, n_vit = fa.launches, va.launches
+    log(f"  TTFT p50 {np.median([r['ttft_ms'] for r in reqs]):.1f} ms, decode p50 "
+        f"{np.median([r['decode_tok_s'] for r in reqs]):.1f} tok/s (B=1, host clock)")
+    log(f"  launches over {prefills} prefills: flash_fwd {n_flash} ({n_flash / prefills:g} per "
+        f"prefill), vit_block {n_vit} ({n_vit / prefills:g} per tower pass)")
+    if n_flash != 32 * prefills or n_vit != 23 * prefills:
+        raise SystemExit("main path did not go through the kernels as expected")
+    for entry in report:
+        entry["launches"] = n_flash if entry["name"] == "flash_fwd" else n_vit
+
+    # Finite logits of the right shape, and the kernel route beside the plain
+    # route on the same request (printed; bf16 differences compound over 32
+    # layers of random weights, so this is a reading, not a gate).
+    rgb, seg, depth = _images(np.random.RandomState(7), 480, 640)
+    from vcoder_tpu_torch.mm_tokens import tokenizer_depth_seg_token
+    from vcoder_tpu_torch.preprocess import process_images
+
+    ids = tokenizer_depth_seg_token(PROMPT, tok)
+    plan = build_splice_plan([ids], num_patches=cfg.vision.num_patches, has_image=True,
+                             has_seg=True, has_depth=True, ds_mode=True)
+    arrays = model_mod.plan_to_arrays(plan, "cuda")
+    px = [process_images([a], dtype=torch.bfloat16, device="cuda") for a in (rgb, seg, depth)]
+    with torch.no_grad():
+        lk, _ = model_mod.prefill(params, cfg, arrays, *px, use_vcoder_emb=True)
+        lp, _ = model_mod.prefill(params, cfg, arrays, *px, use_vcoder_emb=True, attn_impl="xla")
+    if lk.shape != (1, cfg.text.vocab_size) or not torch.isfinite(lk).all():
+        raise SystemExit("main path: prefill logits not finite / wrong shape")
+    rel = ((lk - lp).norm() / lp.norm()).item()
+    log(f"  prefill T={plan.seq_len} ({int(plan.seq_lens[0])} valid): kernel vs plain route "
+        f"logits rel L2 {rel:.3e}, argmax {int(lk.argmax())} vs {int(lp.argmax())}")
+    if "--profile" in sys.argv:
+        profile_requests(model, tok, _images(np.random.RandomState(8), 480, 640))
+    del params, model
+    torch.cuda.empty_cache()
+    return dict(requests=reqs, prefill_rel_l2=rel)
+
+
+def _kernel_class(name: str) -> str:
+    if "flash_fwd" in name:
+        return "flash_fwd (port)"
+    if "gemm_bias" in name:
+        return "gemm_bias (port)"
+    low = name.lower()
+    if any(k in low for k in ("nvjet", "gemm", "cutlass", "xmma", "sm90", "cublas", "splitk")):
+        return "cuBLAS matmul"
+    return "other (elementwise, reductions, copies, gathers)"
+
+
+def profile_requests(model, tok, pictures) -> None:
+    """``--profile``: ``torch.profiler`` over one TTFT request and one
+    32-token request; device time by kernel class, device-busy time against
+    the host clock, and the top kernels; the whole table is printed as one
+    JSON line."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for label, max_new in (("ttft", 1), ("request_32", 32)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _serve(model, tok, pictures, max_new)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        by_name, by_class = {}, {}
+        for e in kernels:
+            us = e.time_range.elapsed_us()
+            by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+            c = _kernel_class(e.name)
+            by_class[c] = by_class.get(c, 0.0) + us / 1e3
+        busy = sum(by_class.values())
+        out[label] = dict(wall_ms=wall_ms, device_busy_ms=busy, n_kernels=len(kernels),
+                          by_class=by_class,
+                          top=sorted(by_name.items(), key=lambda kv: -kv[1])[:15])
+        log(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+            f"(idle share {1 - busy / wall_ms:.3f}), {len(kernels)} kernel launches")
+        for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+            log(f"    {ms:9.3f} ms  {c}")
+        for name, ms in out[label]["top"][:8]:
+            log(f"    top {ms:9.3f} ms  {name[:100]}")
+    log("profile: " + json.dumps(out))
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items() for k2, v2 in _flat(v, f"{prefix}/{k}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k2: v2 for i, v in enumerate(tree) for k2, v2 in _flat(v, f"{prefix}/{i}").items()}
+    return {prefix: tree}
+
+
+def phase_checkpoint() -> None:
+    import torch
+
+    from vcoder_tpu_torch.builder import load_pretrained_model
+    from vcoder_tpu_torch.checkpoint import save_pretrained
+    from vcoder_tpu_torch.config import TextConfig, VCoderConfig, VisionConfig
+    from vcoder_tpu_torch.models import vcoder as model_mod
+    from vcoder_tpu_torch.multimodal import build_splice_plan
+    from vcoder_tpu_torch.simple_tokenizer import SimpleTokenizer
+
+    # Small, but with the kernels' head dims: 64 in the tower, 128 in the LM.
+    cfg = VCoderConfig(
+        model_type="vcoder_ds_llava",
+        vision=VisionConfig(image_size=56, hidden_size=128, intermediate_size=256,
+                            num_layers=3, num_heads=2),
+        text=TextConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                        num_layers=2, num_heads=2, num_kv_heads=1, eos_token_id=-1),
+        use_seg=True, use_depth=True, use_mm2_proj=True, use_vcoder_lm_emb=True,
+    )
+    params = model_mod.init_vcoder_params(cfg, seed=1, dtype=torch.float32, device="cuda")
+    tok = SimpleTokenizer.build_from_texts([PROMPT])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/vcoder_ds_llava-smoke"
+        save_pretrained(path, params, cfg)
+        tok.save_pretrained(path)
+        tokenizer, model, proc, seg_proc, depth_proc, ctx = load_pretrained_model(path)
+    if seg_proc is None or depth_proc is None or model.device.type != "cuda":
+        raise SystemExit("checkpoint: wrong processors or device")
+    saved, loaded = _flat(params), _flat(model.params)
+    if saved.keys() != loaded.keys() or not all(
+        torch.equal(saved[k].to(torch.bfloat16), loaded[k]) for k in saved
+    ):
+        raise SystemExit("checkpoint: loaded weights differ from the saved ones")
+    from vcoder_tpu_torch.mm_tokens import tokenizer_depth_seg_token
+
+    rgb, seg, depth = _images(np.random.RandomState(3), 90, 70)
+    px = [proc([a])["pixel_values"].to(torch.bfloat16) for a in (rgb, seg, depth)]
+    ids = tokenizer_depth_seg_token(PROMPT, tokenizer)
+    res = model.generate([ids], *px, max_new_tokens=8, tokenizer=tokenizer)
+    torch.cuda.synchronize()
+    plan = build_splice_plan([ids], num_patches=cfg.vision.num_patches, has_image=True,
+                             has_seg=True, has_depth=True, ds_mode=True)
+    arrays = model_mod.plan_to_arrays(plan, "cuda")
+    lk, _ = model_mod.prefill(model.params, model.config, arrays, *px, use_vcoder_emb=True)
+    lp, _ = model_mod.prefill(model.params, model.config, arrays, *px, use_vcoder_emb=True,
+                              attn_impl="xla")
+    err = (lk - lp).abs().max().item()
+    tol = 2e-2 * max(1.0, lp.abs().max().item())
+    ok = (res.sequences.shape == (1, 8) and torch.isfinite(lk).all().item() and err <= tol
+          and int(lk.argmax()) == int(lp.argmax()))
+    log(f"checkpoint: loaded {path.rsplit('/', 1)[-1]} via load_pretrained_model, "
+        f"tokens {res.sequences[0].tolist()}, prefill logits kernel vs plain max_abs_err "
+        f"{err:.3e} (tol {tol:.3e}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("checkpoint phase failed")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    try:
+        import vcoder_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the vcoder_tpu_torch package is missing ({e})", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    smi = phase_device()
+    phase_build()
+    report: list = []
+    phase_kernels(report)
+    phase_main_path(report)
+    phase_checkpoint()
+    log(f"wall {time.perf_counter() - t_start:.1f} s on {smi}")
+    print(json.dumps({"kernels": report}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,96 @@
+"""The port stands alone and never runs quietly on the CPU.
+
+* No module of ``vcoder_tpu_torch`` (nor ``chip_smoke.py``) imports ``jax``
+  or ``vcoder_tpu``: the port copies what it needs.
+* Without CUDA, the entry points raise unless the caller asks for the CPU.
+* On CPU tensors the kernel wrappers take their plain versions: nothing is
+  built or loaded, and the launch counters stay at 0.
+"""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from vcoder_tpu_torch.config import VCoderConfig
+from vcoder_tpu_torch.ops import _kernels
+from vcoder_tpu_torch.ops import flash_attention as fa
+from vcoder_tpu_torch.ops import vit_attention as va
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((ROOT / "vcoder_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    bad = []
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            if top in ("jax", "jaxlib", "flax", "optax", "vcoder_tpu"):
+                bad.append(f"{f.relative_to(ROOT)}: {mod}")
+    assert not bad, bad
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the raise paths need a CUDA-less host")
+
+
+def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from vcoder_tpu_torch.builder import load_pretrained_model
+    from vcoder_tpu_torch.checkpoint import save_pretrained
+    from vcoder_tpu_torch.models.vcoder import init_vcoder_params
+    from vcoder_tpu_torch.preprocess import process_images
+
+    cfg = VCoderConfig.tiny("vcoder_ds_llava")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_vcoder_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        process_images([np.zeros((8, 8, 3), np.uint8)])
+    params = init_vcoder_params(cfg, device="cpu", dtype=torch.float32)
+    save_pretrained(str(tmp_path), params, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_pretrained_model(str(tmp_path))
+    model = load_pretrained_model(str(tmp_path), device="cpu")[1]
+    assert model.device.type == "cpu"
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    fa.launches = va.launches = 0
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(1, 20, 2, 8).astype(np.float32)) for _ in range(3))
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, causal=True)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+
+    Dm, H = 16, 2
+    layer = {n: torch.from_numpy(rng.randn(Dm, Dm).astype(np.float32))
+             for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
+    layer.update({n: torch.zeros(Dm) for n in ("q_bias", "k_bias", "v_bias")})
+    x = torch.from_numpy(rng.randn(2, 7, Dm).astype(np.float32))
+    w = va.repack_block(layer, H)
+    y = va.fused_block_attention(x, *w, n_heads=H)
+    assert torch.equal(y, va.fused_block_attention_ref(x, *w, n_heads=H))
+
+    assert fa.launches == 0 and va.launches == 0
+    assert not _kernels._LIBS  # nothing was built or loaded
+
+
+def test_other_devices_raise():
+    q = torch.empty((1, 20, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_fwd(q, q, q, causal=True)
