@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``vcoder_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --profile        # also torch.profiler over two requests
+    python3 chip_smoke.py --profile        # also torch.profiler: two B=1 requests and
+                                           # the paged engine's decode step at B=8
 
 Phases, in order; any failure exits non-zero:
 
@@ -11,14 +12,24 @@ Phases, in order; any failure exits non-zero:
    one process per source, in parallel, into ``vcoder_tpu_torch/_build/``.
 3. Kernels against their plain PyTorch versions at the main path's shapes,
    in bf16, each with its time, its plain version's time, one PyTorch call
-   computing the same function as a yardstick, and its bound.
+   computing the same function as a yardstick, and its bound: flash
+   forward, ViT block, and the paged kernel in six cases (bf16 and int8
+   decode, a verify window of 4, a 128-token chunk window, GQA with a
+   length-0 row, an unstacked pool).
 4. Main path at full width: VCoder-DS-7B with seeded random bf16 weights
-   serves 3 requests (RGB + seg + depth, non-square, made from a numpy seed)
-   through ``process_images``, ``tokenizer_depth_seg_token`` and
-   ``VCoderForCausalLM.generate``, greedy with EOS disabled. The launch
-   counters, set to 0 just before and read just after, must show 32
-   ``flash_fwd`` launches per prefill and 23 ViT-block launches per tower
-   pass.
+   (built once, shared with phase 6) serves 3 requests (RGB + seg + depth,
+   non-square, made from a numpy seed) through ``process_images``,
+   ``tokenizer_depth_seg_token`` and ``VCoderForCausalLM.generate``, greedy
+   with EOS disabled. The launch counters, set to 0 just before and read
+   just after, must show 32 ``flash_fwd`` launches per prefill and 23
+   ViT-block launches per tower pass.
+6. The paged engine at full width, through ``EngineWorker.from_engine``:
+   engine A (bf16 pools) and B (int8 pools) serve 8 concurrent requests of
+   32 tokens; C (speculative 4, chunked prefill 128, prefix cache) serves 4
+   two-turn conversations. Gates: every request completes; in A and B the
+   paged counters equal 32 x the decode steps and flash/ViT launches are
+   32/23 per admission; B's first tokens equal A's; C launched the paged
+   kernel at windows 4 and 128 and hit the prefix cache.
 5. The checkpoint entry point: ``save_pretrained`` writes a small DS
    checkpoint, ``load_pretrained_model`` loads it on the card and
    ``generate`` runs on it; its prefill logits through the kernels agree
@@ -236,6 +247,169 @@ def check_vit_block(report: list) -> None:
                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, status="ok"))
 
 
+def _paged_case(name, *, B, window, H, KH, lengths, L=32, layer=17, page=64, quant=False,
+                stacked=True, seed=0):
+    """Inputs for one paged-attention comparison: pools of L layers (or one
+    unstacked layer), each row's live pages drawn without replacement from
+    pages 1..n-2 (the sentinel and scratch pages are never allocated), table
+    entries past a row's pages pointing at the sentinel."""
+    import torch
+
+    dev = "cuda"
+    rng = np.random.RandomState(seed)
+    D = 128
+    lengths = np.asarray(lengths, np.int32)
+    n_live = -(-lengths // page)
+    p_max = int(n_live.max()) + 1
+    n_pages = int(n_live.sum()) + 2
+    table = np.zeros((B, p_max), np.int32)
+    ids = rng.permutation(np.arange(1, n_pages - 1))
+    o = 0
+    for b in range(B):
+        table[b, : n_live[b]] = ids[o : o + n_live[b]]
+        o += n_live[b]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = ((L,) if stacked else ()) + (n_pages, KH, page, D)
+    if quant:
+        kp = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+        ks = torch.rand(shape[:-1], generator=gen, device=dev) * (2.0 / 127) + 0.5 / 127
+        vs = torch.rand(shape[:-1], generator=gen, device=dev) * (2.0 / 127) + 0.5 / 127
+    else:
+        kp = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+        vp = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+        ks = vs = None
+    q = torch.randn((B, window, H, D), generator=gen, device=dev, dtype=torch.bfloat16)
+    return dict(name=name, q=q, kp=kp, vp=vp, ks=ks, vs=vs, layer=layer, window=window,
+                table=torch.from_numpy(table).to(dev), lengths=torch.from_numpy(lengths).to(dev),
+                np_lengths=lengths, np_table=table, n_live=n_live, page=page, stacked=stacked,
+                quant=quant, report=None)
+
+
+def _paged_dense(case):
+    """The yardstick's inputs: each row's live pages gathered beforehand
+    into dense [B, H, S, D] K/V (int8 dequantized) and the boolean mask of
+    the window-causal rule."""
+    import torch
+
+    q, window, page = case["q"], case["window"], case["page"]
+    B, k, H, D = q.shape
+    kp, vp = case["kp"], case["vp"]
+    if case["stacked"]:
+        kp, vp = kp[case["layer"]], vp[case["layer"]]
+    KH = kp.shape[1]
+    n_live = case["n_live"]
+    S = int(n_live.max()) * page
+    idx = case["table"][:, : int(n_live.max())].long()  # [B, P]
+
+    def dense(pool, scale):
+        x = pool[idx]  # [B, P, KH, page, D]
+        if scale is not None:
+            s = (scale[case["layer"]] if case["stacked"] else scale)[idx]
+            x = (x.float() * s[..., None]).to(torch.bfloat16)
+        return x.permute(0, 2, 1, 3, 4).reshape(B, KH, S, D)
+
+    kd = dense(kp, case["ks"])
+    vd = dense(vp, case["vs"])
+    lim = (case["lengths"].long() - window)[:, None] + torch.arange(k, device=q.device)[None, :]
+    mask = torch.arange(S, device=q.device)[None, None, :] <= lim[:, :, None]  # [B, k, S]
+    return q.transpose(1, 2), kd, vd, mask[:, None]
+
+
+def check_paged(case: dict, report: list) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from vcoder_tpu_torch.ops import paged_attention as pa
+
+    q, kp, vp, ks, vs = (case[x] for x in ("q", "kp", "vp", "ks", "vs"))
+    table, lengths, layer, window = case["table"], case["lengths"], case["layer"], case["window"]
+    B, k, H, D = q.shape
+    if not case["stacked"]:
+        run = lambda: pa.paged_attention(q[:, 0], kp, vp, table, lengths)[:, None]
+        plain = lambda: pa.paged_attention_ref(q[:, 0], kp, vp, table, lengths)[:, None]
+    elif case["quant"]:
+        run = lambda: pa.carry_paged_attention_multi_q8(
+            q, kp, vp, ks, vs, table, lengths, layer, window=window)
+        plain = lambda: pa.carry_paged_attention_multi_q8_ref(
+            q, kp, vp, ks, vs, table, lengths, layer, window=window)
+    else:
+        run = lambda: pa.carry_paged_attention_multi(q, kp, vp, table, lengths, layer, window=window)
+        plain = lambda: pa.carry_paged_attention_multi_ref(
+            q, kp, vp, table, lengths, layer, window=window)
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    # bf16 output of a softmax average of O(1) values: the kernel and the
+    # plain version round p against the same per-page maxima and differ only
+    # in f32 summation order, then round to bf16 (one ulp is 2**-8 at 1..2).
+    tol = 2e-2
+    ok = err <= tol and torch.isfinite(out.float()).all().item()
+    log(f"kernel {case['name']}: max_abs_err {err:.3e} (tol {tol}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{case['name']}: paged kernel disagrees with its plain version")
+    ms = cuda_ms(run)
+    plain_ms = cuda_ms(plain, iters=3, warmup=1)
+    qt, kd, vd, mask = _paged_dense(case)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kd, vd, attn_mask=mask, enable_gqa=(H != kd.shape[1])))
+    del kd, vd
+    # Work these inputs need: every live page of K and V (scales included)
+    # read once, q and out once; each query column against its visible keys.
+    KH, page = kp.shape[-3], case["page"]
+    elem = 1 if case["quant"] else 2
+    live = int(case["n_live"].sum())
+    nbytes = (live * 2 * KH * page * (D * elem + (4 if case["quant"] else 0))
+              + 2 * B * k * H * D * 2 + table.numel() * 4 + B * 4)
+    lim = case["np_lengths"][:, None] - window + np.arange(k)[None, :]
+    pairs = float(np.clip(lim + 1, 0, None).sum()) * H
+    flops = 4.0 * D * pairs
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"  {case['name']}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        f"sdpa over pre-gathered dense K/V (gather excluded) {lib_ms:.4f} ms  "
+        f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    if case["report"]:
+        report.append(dict(name=case["report"], route="cuda",
+                           source="vcoder_tpu_torch/csrc/paged_attn.cu",
+                           replaces=case["replaces"], launches=0, max_abs_err=err, ms=ms,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=lib_ms, status="ok"))
+
+
+def phase_paged_kernels(report: list) -> None:
+    """The paged kernel against its plain version at the engine's shapes."""
+    import torch
+
+    from vcoder_tpu_torch.ops import paged_attention as pa
+
+    decode_lengths = np.linspace(1201, 1233, 8).astype(np.int32)
+    cases = [
+        (dict(name="paged bf16 decode B=8 w=1 L=32@17 H=KH=32 page 64 len 1201-1233",
+              B=8, window=1, H=32, KH=32, lengths=decode_lengths),
+         ("paged_attn_bf16", "vcoder_tpu/ops/paged_attention.py:297")),
+        (dict(name="paged int8 decode B=8 w=1 (same shapes)", B=8, window=1, H=32, KH=32,
+              lengths=decode_lengths, quant=True, seed=1),
+         ("paged_attn_q8", "vcoder_tpu/ops/paged_attention.py:664")),
+        (dict(name="paged bf16 verify B=8 w=4", B=8, window=4, H=32, KH=32,
+              lengths=decode_lengths + 4, seed=2), None),
+        (dict(name="paged bf16 chunk 4 rows w=128", B=4, window=128, H=32, KH=32,
+              lengths=[1280, 1216, 1152, 1280], seed=3), None),
+        (dict(name="paged bf16 GQA 32q/8kv w=4, a length-0 row, a window across a page",
+              B=4, window=4, H=32, KH=8, lengths=[0, 66, 130, 1201], seed=4), None),
+        (dict(name="paged unstacked pool (K8) B=8 w=1", B=8, window=1, H=32, KH=32,
+              lengths=decode_lengths, L=1, layer=0, stacked=False, seed=5),
+         ("paged_attn_k8", "vcoder_tpu/ops/paged_attention.py:55")),
+    ]
+    for kw, rep in cases:
+        case = _paged_case(**kw)
+        if rep:
+            case["report"], case["replaces"] = rep
+        check_paged(case, report)
+        del case
+        torch.cuda.empty_cache()
+    pa.reset_launches()  # comparison launches do not count
+
+
 def phase_kernels(report: list) -> None:
     # The decoder prefill: T=1280 rows, 1201 valid, a cache of S=1280+32.
     main = _flash_case("flash_fwd causal T=1280 (1201 valid) S=1312 H=KH=32 D=128",
@@ -279,15 +453,14 @@ def _serve(model, tok, pictures, max_new_tokens):
     return ids, res
 
 
-def phase_main_path(report: list) -> dict:
+def build_7b():
+    """VCoder-DS-7B with seeded random bf16 weights and EOS off, built once
+    and shared by phases 4 and 6. Returns (cfg, params, model, tokenizer)."""
     import torch
 
     from vcoder_tpu_torch.builder import VCoderForCausalLM
     from vcoder_tpu_torch.config import VCoderConfig
     from vcoder_tpu_torch.models import vcoder as model_mod
-    from vcoder_tpu_torch.multimodal import build_splice_plan
-    from vcoder_tpu_torch.ops import flash_attention as fa
-    from vcoder_tpu_torch.ops import vit_attention as va
     from vcoder_tpu_torch.simple_tokenizer import SimpleTokenizer
 
     cfg = VCoderConfig.standard("vcoder_ds_llava", "7b")
@@ -297,11 +470,22 @@ def phase_main_path(report: list) -> dict:
     params = model_mod.init_vcoder_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _flat(params).values())
-    log(f"main path: VCoder-DS-7B random bf16 weights, {n_params / 1e9:.3f} B params, "
+    log(f"VCoder-DS-7B random bf16 weights, {n_params / 1e9:.3f} B params, "
         f"init {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
-    model = VCoderForCausalLM(cfg, params)
     tok = SimpleTokenizer.build_from_texts([PROMPT])
+    return cfg, params, VCoderForCausalLM(cfg, params), tok
+
+
+def phase_main_path(cfg, params, model, tok) -> dict:
+    """Phase 4: the B=1 path of ``generate``. Returns the launch counts."""
+    import torch
+
+    from vcoder_tpu_torch.models import vcoder as model_mod
+    from vcoder_tpu_torch.multimodal import build_splice_plan
+    from vcoder_tpu_torch.ops import flash_attention as fa
+    from vcoder_tpu_torch.ops import vit_attention as va
+
     rng = np.random.RandomState(0)
     _serve(model, tok, _images(rng, 300, 420), 2)  # warm-up (cuBLAS, allocator)
 
@@ -338,8 +522,6 @@ def phase_main_path(report: list) -> dict:
         f"prefill), vit_block {n_vit} ({n_vit / prefills:g} per tower pass)")
     if n_flash != 32 * prefills or n_vit != 23 * prefills:
         raise SystemExit("main path did not go through the kernels as expected")
-    for entry in report:
-        entry["launches"] = n_flash if entry["name"] == "flash_fwd" else n_vit
 
     # Finite logits of the right shape, and the kernel route beside the plain
     # route on the same request (printed; bf16 differences compound over 32
@@ -363,9 +545,183 @@ def phase_main_path(report: list) -> dict:
         f"logits rel L2 {rel:.3e}, argmax {int(lk.argmax())} vs {int(lp.argmax())}")
     if "--profile" in sys.argv:
         profile_requests(model, tok, _images(np.random.RandomState(8), 480, 640))
-    del params, model
-    torch.cuda.empty_cache()
-    return dict(requests=reqs, prefill_rel_l2=rel)
+    return {"flash_fwd": n_flash, "vit_block": n_vit}
+
+
+ENGINE_SIZES = [(480, 640), (720, 540), (375, 500), (600, 800), (512, 384), (333, 444),
+                (640, 480), (400, 600)]
+
+
+def _prepared(ids, pictures, max_new):
+    """A PreparedRequest carrying the pictures as preprocessed numpy pixels
+    [1, 336, 336, 3] (what a front end hands the worker), plus the same
+    pixels as bf16 tensors for ``generate``."""
+    import torch
+
+    from vcoder_tpu_torch.preprocess import process_images
+    from vcoder_tpu_torch.serve.chat import PreparedRequest
+
+    px = [process_images([a], dtype=torch.bfloat16, device="cuda") for a in pictures]
+    host = [p.float().cpu().numpy() for p in px]
+    prep = PreparedRequest(ori_prompt=PROMPT, input_ids=list(ids), images=host[0], segs=host[1],
+                           depths=host[2], max_new_tokens=max_new, temperature=0.0, top_p=1.0,
+                           stop_str=None)
+    return prep, px
+
+
+def _drive(worker, preps):
+    """Submit every request at once and read each stream on its own thread.
+    Returns one dict per request: tokens, TTFT (from the first submit), its
+    error."""
+    import threading
+
+    results = [None] * len(preps)
+    t0 = time.perf_counter()
+    handles = [worker.submit(p) for p in preps]
+
+    def read(i, handle):
+        toks, times, err = [], [], None
+        for tok, done, e in handle:
+            times.append(time.perf_counter())
+            if e is not None:
+                err = e
+                break
+            toks.append(int(tok))
+        results[i] = dict(tokens=toks, ttft_s=(times[0] - t0) if times else None, err=err)
+
+    threads = [threading.Thread(target=read, args=(i, h)) for i, h in enumerate(handles)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise SystemExit("engine: a stream did not finish")
+    return results, time.perf_counter() - t0
+
+
+def _run_engine(label, cfg, params, turns, *, max_new, **kw):
+    """Build a paged engine and serve each turn -- a list of requests, or a
+    function of the previous turn's results -- through
+    EngineWorker.from_engine, every counter set to 0 just before the turn and
+    read just after; then shut the worker down and close the engine. Returns
+    (results per turn, stats)."""
+    import torch
+
+    from vcoder_tpu_torch.ops import flash_attention as fa
+    from vcoder_tpu_torch.ops import paged_attention as pa
+    from vcoder_tpu_torch.ops import vit_attention as va
+    from vcoder_tpu_torch.serve.engine_server import EngineWorker
+    from vcoder_tpu_torch.serve.paged_engine import PagedServingEngine
+
+    eng = PagedServingEngine(cfg, params, max_batch=8, max_len=2048, page_size=64, eos_id=-1,
+                             device="cuda", **kw)
+    if kw.get("chunked_prefill"):
+        eng.warmup_chunks()
+    pool_gib = sum(t.numel() * t.element_size() for t in
+                   (eng.k_pages, eng.v_pages, eng.k_scale, eng.v_scale) if t is not None) / 2**30
+    worker = EngineWorker.from_engine(eng, model_name="vcoder_ds_llava-7b", eos_id=-1)
+    results, walls, counts, decode = [], [], [], []
+    try:
+        for turn in turns:
+            prep_turn = turn(results[-1]) if callable(turn) else turn
+            n_steps0 = len(eng.timer.samples.get("decode_step", []))
+            fa.launches = va.launches = 0
+            pa.reset_launches()
+            res, wall = _drive(worker, prep_turn)
+            torch.cuda.synchronize()
+            steps = eng.timer.samples.get("decode_step", [])[n_steps0:]
+            counts.append(dict(flash=fa.launches, vit=va.launches, bf16=pa.launches_bf16,
+                               q8=pa.launches_q8, k8=pa.launches_k8,
+                               by_window=dict(pa.launches_by_window),
+                               decode_dispatches=len(steps)))
+            decode.append((sum(steps), float(np.median(steps)) * 1e3 if steps else float("nan")))
+            results.append(res)
+            walls.append(wall)
+        stats = worker.stats()
+    finally:
+        worker.shutdown()
+        eng.close()
+        torch.cuda.empty_cache()
+    for t, (res, wall, c, (dec_s, step_p50)) in enumerate(zip(results, walls, counts, decode)):
+        bad = [r for r in res if r["err"] is not None or len(r["tokens"]) != max_new]
+        if bad:
+            raise SystemExit(f"engine {label}: requests did not complete: {bad[:2]}")
+        ttft = np.median([r["ttft_s"] for r in res]) * 1e3
+        n_tok = sum(len(r["tokens"]) - 1 for r in res)
+        log(f"  engine {label} turn {t + 1}: {len(res)} requests x {max_new} tokens in "
+            f"{wall:.2f} s; TTFT p50 {ttft:.1f} ms; aggregate decode {n_tok / dec_s:.1f} tok/s "
+            f"({n_tok} tokens after the first over {dec_s:.2f} s of decode steps); per-step "
+            f"wall p50 {step_p50:.2f} ms over {c['decode_dispatches']} steps; "
+            f"launches {json.dumps(c)}")
+    log(f"  engine {label}: pools {pool_gib:.2f} GiB, prefix {json.dumps(stats.get('prefix_cache'))}, "
+        f"preemptions {stats.get('preemptions')}")
+    return results, dict(counts=counts, prefix=stats.get("prefix_cache"))
+
+
+def phase_engines(cfg, params, model, tok) -> dict:
+    """Phase 6: the paged engine at full width through EngineWorker.from_engine.
+    A: bf16 pools; B: int8 pools; C: speculative=4 + chunked prefill 128 +
+    prefix cache over 4 two-turn conversations. Returns launch totals."""
+    import torch
+
+    from vcoder_tpu_torch.mm_tokens import tokenizer_depth_seg_token
+
+    max_new = 32
+    rng = np.random.RandomState(11)
+    ids = tokenizer_depth_seg_token(PROMPT, tok)
+    reqs = [_prepared(ids, _images(rng, h, w), max_new) for h, w in ENGINE_SIZES]
+    preps = [p for p, _ in reqs]
+
+    (res_a,), st_a = _run_engine("A (bf16 pools)", cfg, params, [preps], max_new=max_new)
+    (res_b,), st_b = _run_engine("B (int8 pools)", cfg, params, [preps], max_new=max_new,
+                                 kv_quant=True)
+    n = len(preps)
+    ca, cb = st_a["counts"][0], st_b["counts"][0]
+    if ca["k8"] != 32 * ca["decode_dispatches"] or ca["bf16"] or ca["q8"]:
+        raise SystemExit(f"engine A: paged launches {ca} != 32 x decode dispatches")
+    if cb["q8"] != 32 * cb["decode_dispatches"] or cb["k8"] or cb["bf16"]:
+        raise SystemExit(f"engine B: paged launches {cb} != 32 x decode dispatches")
+    for label, c in (("A", ca), ("B", cb)):
+        if c["flash"] != 32 * n or c["vit"] != 23 * n:
+            raise SystemExit(f"engine {label}: flash/ViT launches {c} != 32/23 per admission")
+    first_a = [r["tokens"][0] for r in res_a]
+    first_b = [r["tokens"][0] for r in res_b]
+    if first_a != first_b:
+        raise SystemExit(f"engines A and B disagree on first tokens: {first_a} vs {first_b}")
+    agree_b = sum(int(x == y) for ra, rb in zip(res_a, res_b)
+                  for x, y in zip(ra["tokens"][1:], rb["tokens"][1:]))
+    dense_first = dense_decode = 0
+    for (prep, px), ra in zip(reqs, res_a):
+        out = model.generate([ids], *px, max_new_tokens=max_new).sequences[0].tolist()
+        dense_first += int(out[0] == ra["tokens"][0])
+        dense_decode += sum(int(x == y) for x, y in zip(out[1:], ra["tokens"][1:]))
+    torch.cuda.synchronize()
+    log(f"  A vs dense generate (prompt padded to 1280, not the engine's 1536 bucket): first "
+        f"tokens {dense_first}/{n} agree, decode tokens {dense_decode}/{n * (max_new - 1)}; "
+        f"B vs A decode tokens {agree_b}/{n * (max_new - 1)}; B's first tokens equal A's")
+
+    extra = tok.encode("what else can be seen")[1:]
+
+    def turn2(turn1):
+        return [dataclasses.replace(p, input_ids=list(p.input_ids) + r["tokens"] + extra)
+                for p, r in zip(preps[:4], turn1)]
+
+    if "--profile" in sys.argv:
+        profile_engine_decode(cfg, params, preps)
+    _, st_c = _run_engine("C (speculative 4, chunked prefill 128, prefix cache)", cfg, params,
+                              [preps[:4], turn2], max_new=max_new, speculative=4,
+                              chunked_prefill=128, prefix_cache=True)
+    cc = st_c["counts"]
+    wins = {w for c in cc for w in c["by_window"]}
+    if not {4, 128} <= wins:
+        raise SystemExit(f"engine C: paged launches by window {wins} lack 4 or 128")
+    if st_c["prefix"]["hits"] <= 0:
+        raise SystemExit(f"engine C: no prefix hits {st_c['prefix']}")
+    totals = {}
+    for c in [ca, cb] + cc:
+        for key in ("flash", "vit", "bf16", "q8", "k8"):
+            totals[key] = totals.get(key, 0) + c[key]
+    return totals
 
 
 def _kernel_class(name: str) -> str:
@@ -373,46 +729,80 @@ def _kernel_class(name: str) -> str:
         return "flash_fwd (port)"
     if "gemm_bias" in name:
         return "gemm_bias (port)"
+    if "paged_attn" in name:
+        return "paged_attn (port)"
     low = name.lower()
     if any(k in low for k in ("nvjet", "gemm", "cutlass", "xmma", "sm90", "cublas", "splitk")):
         return "cuBLAS matmul"
     return "other (elementwise, reductions, copies, gathers)"
 
 
-def profile_requests(model, tok, pictures) -> None:
-    """``--profile``: ``torch.profiler`` over one TTFT request and one
-    32-token request; device time by kernel class, device-busy time against
-    the host clock, and the top kernels; the whole table is printed as one
-    JSON line."""
+def _profile(label: str, fn, per: int = 1) -> dict:
+    """``torch.profiler`` over ``fn()``: device time by kernel class,
+    device-busy time against the host clock, the top kernels; times are
+    divided by ``per`` (steps in the window)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    out = {}
-    for label, max_new in (("ttft", 1), ("request_32", 32)):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            _serve(model, tok, pictures, max_new)
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        by_name, by_class = {}, {}
-        for e in kernels:
-            us = e.time_range.elapsed_us()
-            by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
-            c = _kernel_class(e.name)
-            by_class[c] = by_class.get(c, 0.0) + us / 1e3
-        busy = sum(by_class.values())
-        out[label] = dict(wall_ms=wall_ms, device_busy_ms=busy, n_kernels=len(kernels),
-                          by_class=by_class,
-                          top=sorted(by_name.items(), key=lambda kv: -kv[1])[:15])
-        log(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
-            f"(idle share {1 - busy / wall_ms:.3f}), {len(kernels)} kernel launches")
-        for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
-            log(f"    {ms:9.3f} ms  {c}")
-        for name, ms in out[label]["top"][:8]:
-            log(f"    top {ms:9.3f} ms  {name[:100]}")
+        wall_ms = (time.perf_counter() - t0) * 1e3 / per
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name, by_class = {}, {}
+    for e in kernels:
+        ms = e.time_range.elapsed_us() / 1e3 / per
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        c = _kernel_class(e.name)
+        by_class[c] = by_class.get(c, 0.0) + ms
+    busy = sum(by_class.values())
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy, n_kernels=len(kernels) / per,
+               by_class=by_class, top=sorted(by_name.items(), key=lambda kv: -kv[1])[:15])
+    log(f"profile {label}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+        f"(idle share {1 - busy / wall_ms:.3f}), {len(kernels) / per:.0f} kernel launches"
+        + (f" (per step, over {per} steps)" if per > 1 else ""))
+    for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        log(f"    {ms:9.3f} ms  {c}")
+    for name, ms in out["top"][:8]:
+        log(f"    top {ms:9.3f} ms  {name[:100]}")
+    return out
+
+
+def profile_requests(model, tok, pictures) -> None:
+    """``--profile``: one TTFT request and one 32-token request of the B=1
+    path, printed as one ``profile: {...}`` JSON line."""
+    out = {label: _profile(label, lambda n=max_new: _serve(model, tok, pictures, n))
+           for label, max_new in (("ttft", 1), ("request_32", 32))}
     log("profile: " + json.dumps(out))
+
+
+def profile_engine_decode(cfg, params, preps, steps: int = 8) -> None:
+    """``--profile``: the paged engine's decode step at B=8 (bf16 and int8
+    pools). All 8 requests are admitted first; the window covers ``steps``
+    pure decode steps. Printed as one ``profile_engine: {...}`` JSON line."""
+    import torch
+
+    from vcoder_tpu_torch.serve.paged_engine import PagedServingEngine
+
+    out = {}
+    for label, kw in (("engine_bf16_decode_step", {}), ("engine_int8_decode_step",
+                                                         {"kv_quant": True})):
+        eng = PagedServingEngine(cfg, params, max_batch=8, max_len=2048, page_size=64,
+                                 eos_id=-1, device="cuda", **kw)
+        for p in preps:
+            eng.add_request(p.input_ids, images=p.images, segs=p.segs, depths=p.depths,
+                            max_new_tokens=64)
+        eng.step()  # admit all 8 (dense prefill) and run one decode step
+        eng.step()
+        if not eng.active.all():
+            raise SystemExit("profile: the engine did not admit every request")
+        out[label] = _profile(label, lambda: [eng.step() for _ in range(steps)], per=steps)
+        eng.close()
+        torch.cuda.empty_cache()
+    log("profile_engine: " + json.dumps(out))
 
 
 def _flat(tree, prefix=""):
@@ -496,7 +886,25 @@ def main() -> int:
     phase_build()
     report: list = []
     phase_kernels(report)
-    phase_main_path(report)
+    phase_paged_kernels(report)
+    cfg, params, model, tok = build_7b()
+    main_counts = phase_main_path(cfg, params, model, tok)
+    log("engines (phase 6): VCoder-DS-7B, max_batch 8, max_len 2048, page 64, EOS off")
+    engine_counts = phase_engines(cfg, params, model, tok)
+    del params, model
+    torch.cuda.empty_cache()
+    # Each entry's launches: the sum over the driven paths, each counted from
+    # 0 just before it ran and read just after.
+    launches = {
+        "flash_fwd": main_counts["flash_fwd"] + engine_counts["flash"],
+        "vit_block": main_counts["vit_block"] + engine_counts["vit"],
+        "paged_attn_bf16": engine_counts["bf16"],
+        "paged_attn_q8": engine_counts["q8"],
+        "paged_attn_k8": engine_counts["k8"],
+    }
+    for entry in report:
+        entry["launches"] = launches[entry["name"]]
+    log(f"launches on the driven paths: {json.dumps(launches)}")
     phase_checkpoint()
     log(f"wall {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": report}))

@@ -94,3 +94,53 @@ def test_other_devices_raise():
     q = torch.empty((1, 20, 2, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_fwd(q, q, q, causal=True)
+
+
+def test_paged_engine_and_worker_raise_without_cuda(no_cuda):
+    from vcoder_tpu_torch.checkpoint import _map_tensors
+    from vcoder_tpu_torch.models.vcoder import init_vcoder_params
+    from vcoder_tpu_torch.serve.engine import ServingEngine
+    from vcoder_tpu_torch.serve.engine_server import EngineWorker
+    from vcoder_tpu_torch.serve.paged_engine import PagedServingEngine
+
+    cfg = VCoderConfig.tiny("vcoder_ds_llava")
+    params = init_vcoder_params(cfg, device="cpu", dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedServingEngine(cfg, params, max_len=256)  # device="cuda" by default
+    with pytest.raises(NotImplementedError, match="from_engine"):
+        EngineWorker("a/checkpoint")
+    meta = _map_tensors(params, lambda t: t.to("meta"))
+    with pytest.raises(ValueError, match="params lie on"):
+        PagedServingEngine(cfg, meta, max_len=256, device="cpu")
+    with pytest.raises(NotImplementedError):
+        ServingEngine(cfg, params, device="cpu")  # the slot engine waits
+    with pytest.raises(NotImplementedError):
+        PagedServingEngine(cfg, params, max_len=256, device="cpu", lora_adapters={"a": {}})
+    eng = PagedServingEngine(cfg, params, max_len=256, device="cpu")
+    assert eng.k_pages.device.type == "cpu"
+
+
+def test_paged_wrappers_take_the_plain_versions_on_cpu():
+    from vcoder_tpu_torch.ops import paged_attention as pa
+
+    pa.reset_launches()
+    rng = np.random.RandomState(0)
+    L, n, KH, page, D, B = 2, 6, 2, 8, 16, 2
+    kp, vp = (torch.from_numpy(rng.randn(L, n, KH, page, D).astype(np.float32)) for _ in range(2))
+    kq = torch.from_numpy(rng.randint(-127, 128, (L, n, KH, page, D)).astype(np.int8))
+    ks = torch.from_numpy(rng.rand(L, n, KH, page).astype(np.float32))
+    q = torch.from_numpy(rng.randn(B, 4, 4, D).astype(np.float32))
+    table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    lengths = torch.tensor([12, 5], dtype=torch.int32)
+    out = pa.carry_paged_attention_multi(q, kp, vp, table, lengths, 1, window=4)
+    assert torch.equal(out, pa.carry_paged_attention_multi_ref(q, kp, vp, table, lengths, 1,
+                                                               window=4))
+    out = pa.carry_paged_attention_multi_q8(q, kq, kq, ks, ks, table, lengths, 0, window=4)
+    assert torch.equal(out, pa.carry_paged_attention_multi_q8_ref(q, kq, kq, ks, ks, table,
+                                                                  lengths, 0, window=4))
+    out = pa.carry_paged_attention(q[:, 0], kp, vp, table, lengths, 1)
+    assert torch.equal(out, pa.paged_attention_ref(q[:, 0], kp[1], vp[1], table, lengths))
+    assert pa.launches_bf16 == pa.launches_q8 == pa.launches_k8 == 0
+    assert not pa.launches_by_window and "paged_attn" not in _kernels._LIBS
+    with pytest.raises(ValueError, match="unsupported device"):
+        pa.paged_attention(q[:, 0].to("meta"), kp[0], vp[0], table, lengths)

@@ -7,8 +7,9 @@ The TPU's Pallas kernels on the serving path are hand-written CUDA kernels
 for ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use.
 
 Entry points (``builder.load_pretrained_model``, ``generation.generate``,
-``models.vcoder.init_vcoder_params``) run on CUDA unless the caller passes
-``device="cpu"``, and raise when CUDA is absent.
+``models.vcoder.init_vcoder_params``, ``serve.paged_engine.PagedServingEngine``)
+run on CUDA unless the caller passes ``device="cpu"``, and raise when CUDA is
+absent.
 """
 
 __version__ = "0.1.0"

@@ -65,6 +65,30 @@ def sample_token(
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+def sample_token_batch(
+    logits: torch.Tensor,  # [B, V]
+    generator: Optional[torch.Generator],
+    temperature: torch.Tensor,  # [B] f32; rows <= 0 are greedy
+    top_p: torch.Tensor,  # [B] f32; rows >= 1 keep every token
+    *,
+    nucleus: bool = True,
+    sampling: bool = True,
+) -> torch.Tensor:
+    """Per-row sampling for the serving engines (``generation.py:78``): each
+    row draws with its own temperature and top_p. ``nucleus=False`` skips the
+    vocabulary sort when no active row restricts top_p; ``sampling=False``
+    (no active row samples) returns the greedy tokens without drawing."""
+    greedy = torch.argmax(logits, dim=-1)
+    if not sampling:
+        return greedy
+    temperature = temperature.to(logits.device)
+    scaled = logits / temperature.clamp_min(1e-6)[:, None]
+    if nucleus:
+        scaled = nucleus_filter(scaled, top_p.to(logits.device))
+    sampled = torch.multinomial(torch.softmax(scaled, dim=-1), 1, generator=generator)[:, 0]
+    return torch.where(temperature > 0.0, sampled, greedy)
+
+
 @dataclasses.dataclass
 class GenerationResult:
     sequences: np.ndarray  # [B, max_new_tokens] generated ids (EOS after the end)

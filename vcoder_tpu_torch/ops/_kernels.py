@@ -39,6 +39,13 @@ _SIGNATURES = {
         + [_F, _I, _P],  # scale causal stream
     ),
     "gemm_bias": ("gemm_bias", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "paged_attn": (
+        "paged_attn",
+        [_P] * 8  # q kp vp ks vs table lengths out
+        + [_I] * 7  # B window H KH n_pages page P_max
+        + [_L] * 3  # q batch, token, head strides
+        + [_F, _I, _P],  # scale quant stream
+    ),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
