@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --profile        # also torch.profiler: two B=1 requests and
-                                           # the paged engine's decode step at B=8
+                                           # the paged engine's decode step at B=8,
+                                           # in bf16 and with int4/int8 weights
 
 Phases, in order; any failure exits non-zero:
 
@@ -11,11 +12,14 @@ Phases, in order; any failure exits non-zero:
 2. Build: every ``vcoder_tpu_torch/csrc/*.cu`` with ``nvcc`` for ``sm_90a``,
    one process per source, in parallel, into ``vcoder_tpu_torch/_build/``.
 3. Kernels against their plain PyTorch versions at the main path's shapes,
-   in bf16, each with its time, its plain version's time, one PyTorch call
+   each with its time, its plain version's time, one PyTorch call
    computing the same function as a yardstick, and its bound: flash
-   forward, ViT block, and the paged kernel in six cases (bf16 and int8
+   forward, ViT block, the paged kernel in six cases (bf16 and int8
    decode, a verify window of 4, a 128-token chunk window, GQA with a
-   length-0 row, an unstacked pool).
+   length-0 row, an unstacked pool), the int4 decode matmul at B=1 and B=8
+   over the 7B gate/up, down and lm_head weights, and the int8 GEMM in both
+   forms at the decoder prefill (M=1280) and the tower (M=1731). Kernels and
+   yardsticks are timed by CUDA-graph replay, the plain versions eagerly.
 4. Main path at full width: VCoder-DS-7B with seeded random bf16 weights
    (built once, shared with phase 6) serves 3 requests (RGB + seg + depth,
    non-square, made from a numpy seed) through ``process_images``,
@@ -30,10 +34,18 @@ Phases, in order; any failure exits non-zero:
    paged counters equal 32 x the decode steps and flash/ViT launches are
    32/23 per admission; B's first tokens equal A's; C launched the paged
    kernel at windows 4 and 128 and hit the prefix cache.
+7. Quantized weights at full width: the phase-4 weights quantized on the
+   card (``quantize_params``) to int4 and int8; the 3 requests of phase 4
+   through ``generate`` on the int4 model, gated on 362 W8A8 products
+   (``int8_mm_scaled``) and 32 flash launches per prefill, 225
+   ``int4_matmul`` launches per decode step plus 1 per prefill, no ViT
+   block; engine D (int4 weights, bf16 pools) and E (int8 weights, int8
+   pools) on engine A's traffic, gated on the same counts per admission
+   and per decode step.
 5. The checkpoint entry point: ``save_pretrained`` writes a small DS
-   checkpoint, ``load_pretrained_model`` loads it on the card and
-   ``generate`` runs on it; its prefill logits through the kernels agree
-   with the plain route.
+   checkpoint, ``load_pretrained_model`` loads it on the card as bf16, with
+   ``load_4bit`` and with ``load_8bit``, and ``generate`` runs on each;
+   their prefill logits through the kernels agree with the plain route.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -42,6 +54,7 @@ package beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -53,6 +66,7 @@ import numpy as np
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), at 700 W.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -76,8 +90,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -157,7 +171,8 @@ def check_flash(case: dict, report: list) -> None:
         f"(tol {lse_tol}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"{case['name']}: kernel disagrees with its plain version")
-    ms = cuda_ms(lambda: fa.launch_flash_fwd(q, k, v, pos, mask, causal=causal, scale=D**-0.5))
+    ms = graph_ms([lambda: fa.launch_flash_fwd(q, k, v, pos, mask, causal=causal,
+                                               scale=D**-0.5)] * 5)
     plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, pos, mask, causal=causal), iters=5)
     # Yardstick: SDPA on the same inputs with the same boolean mask.
     kpos = torch.arange(S, device="cuda")
@@ -166,8 +181,8 @@ def check_flash(case: dict, report: list) -> None:
         bmask = bmask & (kpos[None, None, :] <= pos[:, :, None])
     bmask = bmask[:, None]  # [B,1,T,S]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=bmask, enable_gqa=(H != KH)))
+    lib_ms = graph_ms([lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=bmask, enable_gqa=(H != KH))] * 5)
     # Work this data needs: each query row against its visible keys.
     np_pos, np_mask = case["np_pos"], case["np_mask"]
     vis = np.broadcast_to(np_mask[:, None, :].astype(bool), (B, T, S))
@@ -220,7 +235,7 @@ def check_vit_block(report: list) -> None:
         f"-> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("vit_block: kernels disagree with the plain version")
-    ms = cuda_ms(lambda: va.fused_block_attention(x, wqkv_t, bqkv, wo_t, n_heads=H))
+    ms = graph_ms([lambda: va.fused_block_attention(x, wqkv_t, bqkv, wo_t, n_heads=H)] * 5)
     va.launches = 0
     plain_ms = cuda_ms(lambda: va.fused_block_attention_ref(x, wqkv_t, bqkv, wo_t, n_heads=H),
                        iters=5)
@@ -233,7 +248,7 @@ def check_vit_block(report: list) -> None:
         o = F.scaled_dot_product_attention(q, k, v, scale=1.0)
         return o.transpose(1, 2).reshape(B * T, Dm) @ wo
 
-    lib_ms = cuda_ms(library)
+    lib_ms = graph_ms([library] * 5)
     M = B * T
     flops = 2.0 * M * Dm * 3 * Dm + 4.0 * B * H * T * T * dh + 2.0 * M * Dm * Dm
     nbytes = M * Dm * 2 * 2 + 4 * Dm * Dm * 2 + 3 * Dm * 4
@@ -348,11 +363,11 @@ def check_paged(case: dict, report: list) -> None:
     log(f"kernel {case['name']}: max_abs_err {err:.3e} (tol {tol}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"{case['name']}: paged kernel disagrees with its plain version")
-    ms = cuda_ms(run)
+    ms = graph_ms([run] * 5)
     plain_ms = cuda_ms(plain, iters=3, warmup=1)
     qt, kd, vd, mask = _paged_dense(case)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kd, vd, attn_mask=mask, enable_gqa=(H != kd.shape[1])))
+    lib_ms = graph_ms([lambda: F.scaled_dot_product_attention(
+        qt, kd, vd, attn_mask=mask, enable_gqa=(H != kd.shape[1]))] * 5)
     del kd, vd
     # Work these inputs need: every live page of K and V (scales included)
     # read once, q and out once; each query column against its visible keys.
@@ -408,6 +423,168 @@ def phase_paged_kernels(report: list) -> None:
         del case
         torch.cuda.empty_cache()
     pa.reset_launches()  # comparison launches do not count
+
+
+def _copies(t, nbytes: int) -> list:
+    """``t`` and enough clones that together they exceed the 50 MB L2
+    twice: a decode step reads each weight once, from HBM."""
+    return [t] + [t.clone() for _ in range(-(-120_000_000 // nbytes) - 1)]
+
+
+def graph_ms(fns: list, reps: int = 10) -> float:
+    """Device ms per call of ``fns`` (each called once per pass), captured
+    in one CUDA graph and replayed ``reps`` times between CUDA events: a
+    call of a few microseconds takes longer to enqueue from Python than to
+    run, so eager back-to-back launches would time the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in fns:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for f in fns:
+            f()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * len(fns))
+    del graph
+    return ms
+
+
+def check_int4(B: int, K: int, N: int, report) -> None:
+    """K5 against its plain version at a 7B decode shape."""
+    import torch
+
+    from vcoder_tpu_torch.ops import int4_matmul as i4
+    from vcoder_tpu_torch.ops.quant import pack_int4
+
+    rng = np.random.RandomState(K + N + B)
+    vals = torch.from_numpy(rng.randint(-8, 8, (K, N)).astype(np.int8)).cuda()
+    qp = pack_int4(vals)
+    x = torch.from_numpy(rng.randn(B, K).astype(np.float32)).to("cuda", torch.bfloat16)
+    y = i4.launch_int4_matmul(x, qp)
+    ref = i4.int4_matmul_ref(x, qp)
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    # f32 sums in another order, then one bf16 rounding each: two bf16 ulps
+    # at the largest output.
+    tol = 2.0 ** -7 * max(1.0, scale)
+    ok = err <= tol and torch.isfinite(y.float()).all().item()
+    name = f"int4_matmul B={B} K={K} N={N}"
+    log(f"kernel {name}: max_abs_err {err:.3e} (tol {tol:.3e}, max|ref| {scale:.1f}) "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    w_bytes = K // 2 * N
+    ms = graph_ms([lambda q=q: i4.launch_int4_matmul(x, q) for q in _copies(qp, w_bytes)])
+    plain_ms = cuda_ms(lambda: i4.int4_matmul_ref(x, qp), iters=3, warmup=1)
+    wb = vals.to(torch.bfloat16)
+    lib_ms = graph_ms([lambda w=w: torch.matmul(x, w) for w in _copies(wb, 2 * K * N)])
+    del wb
+    flops = 2.0 * B * K * N
+    nbytes = w_bytes + B * K * 2 + B * N * 2
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"  {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bf16 matmul over the "
+        f"dequantized weight {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
+        f"{nbytes / 1e6:.1f} MB; CUDA-graph replay over weight copies >120 MB, L2 cold)")
+    torch.cuda.empty_cache()
+    if report is not None:
+        report.append(dict(name="int4_matmul", route="cuda",
+                           source="vcoder_tpu_torch/csrc/int4_matmul.cu",
+                           replaces="vcoder_tpu/ops/int4_matmul.py:47",
+                           launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, status="ok"))
+
+
+def check_int8(M: int, K: int, N: int, report) -> None:
+    """K10 in both forms against their plain versions at a W8A8 shape."""
+    import torch
+
+    from vcoder_tpu_torch.ops import int8_matmul as i8
+
+    rng = np.random.RandomState(M + K + N)
+    gen = torch.Generator(device="cuda").manual_seed(M + K)
+    a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
+    b = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+    sa = torch.from_numpy((rng.rand(M, 1) * 0.02 + 1e-3).astype(np.float32)).cuda()
+    sb = torch.from_numpy((rng.rand(1, N) * 0.002 + 1e-4).astype(np.float32)).cuda()
+    c = i8.launch_int8_mm(a, b)
+    c_ref = i8.int8_mm_ref(a, b)
+    y = i8.launch_int8_mm_scaled(a, b, sa, sb)
+    y_ref = i8.int8_mm_scaled_ref(a, b, sa, sb)
+    torch.cuda.synchronize()
+    err_s32 = (c.long() - c_ref.long()).abs().max().item()
+    diff = (y.float() - y_ref.float()).abs()
+    err_scaled = diff.max().item()
+    # The s32 product is exact; the scaled form rounds the same f32 products
+    # once to bf16, so it may differ from the plain version by at most one
+    # bf16 rounding (2**-8 of the value).
+    ulps = (diff / y_ref.float().abs().clamp_min(1e-30)).max().item()
+    ok = err_s32 == 0 and ulps <= 2.0 ** -8 and torch.isfinite(y.float()).all().item()
+    name = f"M={M} K={K} N={N}"
+    log(f"kernel int8_mm {name}: s32 max_abs_err {err_s32} (tol 0); int8_mm_scaled bf16 "
+        f"max_abs_err {err_scaled:.3e}, max relative {ulps:.3e} (tol 2^-8) "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"int8_mm {name}: kernel disagrees with its plain version")
+    ops = 2.0 * M * K * N
+    for form, run, plain, out_bytes in (
+        ("int8_mm", lambda: i8.launch_int8_mm(a, b), lambda: i8.int8_mm_ref(a, b), 4),
+        ("int8_mm_scaled", lambda: i8.launch_int8_mm_scaled(a, b, sa, sb),
+         lambda: i8.int8_mm_scaled_ref(a, b, sa, sb), 2),
+    ):
+        ms = graph_ms([run] * 5)
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        if form == "int8_mm":
+            lib_ms = graph_ms([lambda: torch._int_mm(a, b)] * 5)
+        else:
+            lib_ms = graph_ms(
+                [lambda: (torch._int_mm(a, b).float() * sa * sb).to(torch.bfloat16)] * 5)
+        nbytes = M * K + K * N + M * N * out_bytes + (4 * (M + N) if out_bytes == 2 else 0)
+        b_ms, b_by = bound(ops, nbytes, PEAK_INT8_OPS)
+        log(f"  {form} {name}: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s)  plain "
+            f"{plain_ms:.4f} ms  torch._int_mm{' + epilogue' if out_bytes == 2 else ''} "
+            f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; {ops / 1e9:.1f} GOP at 1979 TOP/s, "
+            f"{nbytes / 1e6:.1f} MB)")
+        if report is not None:
+            report.append(dict(
+                name=form, route="cuda", source="vcoder_tpu_torch/csrc/int8_mm.cu",
+                replaces=("scripts/bench_int8_matmul.py:76" if form == "int8_mm"
+                          else "scripts/bench_int8_matmul.py:92"),
+                launches=0, max_abs_err=float(err_s32 if form == "int8_mm" else err_scaled),
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                status="ok"))
+    del a, b, c, c_ref, y, y_ref
+    torch.cuda.empty_cache()
+
+
+def phase_quant_kernels(report: list) -> None:
+    """K5 and K10 against their plain versions at the quantized path's
+    shapes: int4 decode at B=1 and B=8 over the 7B q/k/v/o-sized, gate/up,
+    down and lm_head weights; the W8A8 product at the decoder prefill
+    (M=1280) and the tower (M=1731)."""
+    from vcoder_tpu_torch.ops import int4_matmul as i4
+    from vcoder_tpu_torch.ops import int8_matmul as i8
+
+    for B in (1, 8):
+        for K, N in ((4096, 11008), (11008, 4096), (4096, 32000)):
+            check_int4(B, K, N, report if (B, K, N) == (1, 4096, 11008) else None)
+    check_int8(1280, 4096, 11008, report)
+    check_int8(1731, 1024, 4096, None)
+    i4.launches = 0  # comparison launches do not count
+    i8.reset_launches()
 
 
 def phase_kernels(report: list) -> None:
@@ -481,8 +658,6 @@ def phase_main_path(cfg, params, model, tok) -> dict:
     """Phase 4: the B=1 path of ``generate``. Returns the launch counts."""
     import torch
 
-    from vcoder_tpu_torch.models import vcoder as model_mod
-    from vcoder_tpu_torch.multimodal import build_splice_plan
     from vcoder_tpu_torch.ops import flash_attention as fa
     from vcoder_tpu_torch.ops import vit_attention as va
 
@@ -526,18 +701,7 @@ def phase_main_path(cfg, params, model, tok) -> dict:
     # Finite logits of the right shape, and the kernel route beside the plain
     # route on the same request (printed; bf16 differences compound over 32
     # layers of random weights, so this is a reading, not a gate).
-    rgb, seg, depth = _images(np.random.RandomState(7), 480, 640)
-    from vcoder_tpu_torch.mm_tokens import tokenizer_depth_seg_token
-    from vcoder_tpu_torch.preprocess import process_images
-
-    ids = tokenizer_depth_seg_token(PROMPT, tok)
-    plan = build_splice_plan([ids], num_patches=cfg.vision.num_patches, has_image=True,
-                             has_seg=True, has_depth=True, ds_mode=True)
-    arrays = model_mod.plan_to_arrays(plan, "cuda")
-    px = [process_images([a], dtype=torch.bfloat16, device="cuda") for a in (rgb, seg, depth)]
-    with torch.no_grad():
-        lk, _ = model_mod.prefill(params, cfg, arrays, *px, use_vcoder_emb=True)
-        lp, _ = model_mod.prefill(params, cfg, arrays, *px, use_vcoder_emb=True, attn_impl="xla")
+    lk, lp, plan = _prefill_routes(params, cfg, tok, _images(np.random.RandomState(7), 480, 640))
     if lk.shape != (1, cfg.text.vocab_size) or not torch.isfinite(lk).all():
         raise SystemExit("main path: prefill logits not finite / wrong shape")
     rel = ((lk - lp).norm() / lp.norm()).item()
@@ -608,6 +772,8 @@ def _run_engine(label, cfg, params, turns, *, max_new, **kw):
     import torch
 
     from vcoder_tpu_torch.ops import flash_attention as fa
+    from vcoder_tpu_torch.ops import int4_matmul as i4
+    from vcoder_tpu_torch.ops import int8_matmul as i8
     from vcoder_tpu_torch.ops import paged_attention as pa
     from vcoder_tpu_torch.ops import vit_attention as va
     from vcoder_tpu_torch.serve.engine_server import EngineWorker
@@ -625,14 +791,17 @@ def _run_engine(label, cfg, params, turns, *, max_new, **kw):
         for turn in turns:
             prep_turn = turn(results[-1]) if callable(turn) else turn
             n_steps0 = len(eng.timer.samples.get("decode_step", []))
-            fa.launches = va.launches = 0
+            fa.launches = va.launches = i4.launches = 0
             pa.reset_launches()
+            i8.reset_launches()
             res, wall = _drive(worker, prep_turn)
             torch.cuda.synchronize()
             steps = eng.timer.samples.get("decode_step", [])[n_steps0:]
             counts.append(dict(flash=fa.launches, vit=va.launches, bf16=pa.launches_bf16,
                                q8=pa.launches_q8, k8=pa.launches_k8,
                                by_window=dict(pa.launches_by_window),
+                               int4=i4.launches, int8=i8.launches,
+                               int8_scaled=i8.launches_scaled,
                                decode_dispatches=len(steps)))
             decode.append((sum(steps), float(np.median(steps)) * 1e3 if steps else float("nan")))
             results.append(res)
@@ -707,7 +876,9 @@ def phase_engines(cfg, params, model, tok) -> dict:
                 for p, r in zip(preps[:4], turn1)]
 
     if "--profile" in sys.argv:
-        profile_engine_decode(cfg, params, preps)
+        profile_engine_decode(cfg, preps, [("engine_bf16_decode_step", params, {}),
+                                           ("engine_int8_decode_step", params,
+                                            {"kv_quant": True})])
     _, st_c = _run_engine("C (speculative 4, chunked prefill 128, prefix cache)", cfg, params,
                               [preps[:4], turn2], max_new=max_new, speculative=4,
                               chunked_prefill=128, prefix_cache=True)
@@ -724,6 +895,174 @@ def phase_engines(cfg, params, model, tok) -> dict:
     return totals
 
 
+@contextlib.contextmanager
+def plain_quant_route():
+    """The plain route of the quantized matmuls, for a reading of the
+    kernel route against it: ``qmatmul`` calls the int4 and W8A8 products
+    through their modules, so pointing those names at the plain versions
+    swaps the route (the wrappers themselves only ever launch on CUDA).
+    Fails if any kernel launched inside, so that a reading of the kernel
+    route cannot quietly compare the kernels with themselves."""
+    from vcoder_tpu_torch.ops import flash_attention as fa
+    from vcoder_tpu_torch.ops import int4_matmul as i4
+    from vcoder_tpu_torch.ops import int8_matmul as i8
+    from vcoder_tpu_torch.ops import paged_attention as pa
+    from vcoder_tpu_torch.ops import vit_attention as va
+
+    def counts():
+        return (fa.launches, va.launches, i4.launches, i8.launches, i8.launches_scaled,
+                pa.launches_bf16, pa.launches_q8, pa.launches_k8)
+
+    before = counts()
+    saved = i4.int4_matmul, i8.int8_mm_scaled
+    i4.int4_matmul, i8.int8_mm_scaled = i4.int4_matmul_ref, i8.int8_mm_scaled_ref
+    try:
+        yield
+    finally:
+        i4.int4_matmul, i8.int8_mm_scaled = saved
+    if counts() != before:
+        raise SystemExit(f"plain route launched kernels: counts {before} -> {counts()}")
+
+
+def _prefill_routes(params, cfg, tok, pictures):
+    """Last-token prefill logits of one DS request through the kernels and
+    through the plain route (plain attention, plain quantized products)."""
+    import torch
+
+    from vcoder_tpu_torch.mm_tokens import tokenizer_depth_seg_token
+    from vcoder_tpu_torch.models import vcoder as model_mod
+    from vcoder_tpu_torch.multimodal import build_splice_plan
+    from vcoder_tpu_torch.preprocess import process_images
+
+    ids = tokenizer_depth_seg_token(PROMPT, tok)
+    plan = build_splice_plan([ids], num_patches=cfg.vision.num_patches, has_image=True,
+                             has_seg=True, has_depth=True, ds_mode=True)
+    arrays = model_mod.plan_to_arrays(plan, "cuda")
+    dtype = params["lm"]["embed_tokens"].dtype
+    px = [process_images([a], dtype=dtype, device="cuda") for a in pictures]
+    with torch.no_grad():
+        lk, _ = model_mod.prefill(params, cfg, arrays, *px, use_vcoder_emb=True)
+        with plain_quant_route():
+            lp, _ = model_mod.prefill(params, cfg, arrays, *px, use_vcoder_emb=True,
+                                      attn_impl="xla")
+    torch.cuda.synchronize()
+    return lk, lp, plan
+
+
+def phase_quantized(cfg, params, tok) -> dict:
+    """Phase 7: quantized weights at full width. The phase-4 bf16 weights
+    quantized on the card to int4 and to int8 (``quantize_params``, the bf16
+    tree kept); the 3 requests of phase 4 through ``generate`` on the int4
+    model; engine D (int4 weights, bf16 pools) and engine E (int8 weights,
+    int8 pools) on engine A's traffic. Returns launch totals."""
+    import torch
+
+    from vcoder_tpu_torch.builder import VCoderForCausalLM
+    from vcoder_tpu_torch.mm_tokens import tokenizer_depth_seg_token
+    from vcoder_tpu_torch.ops import flash_attention as fa
+    from vcoder_tpu_torch.ops import int4_matmul as i4
+    from vcoder_tpu_torch.ops import int8_matmul as i8
+    from vcoder_tpu_torch.ops import paged_attention as pa
+    from vcoder_tpu_torch.ops import vit_attention as va
+    from vcoder_tpu_torch.quant import quantize_params
+
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    q4 = quantize_params(params, bits=4, destroy=False)
+    torch.cuda.synchronize()
+    gib4 = (torch.cuda.memory_allocated() - base) / 2**30
+    q8 = quantize_params(params, bits=8, destroy=False)
+    torch.cuda.synchronize()
+    gib8 = (torch.cuda.memory_allocated() - base) / 2**30 - gib4
+    log(f"quantized (phase 7): int4 leaves {gib4:.2f} GiB, int8 leaves {gib8:.2f} GiB, in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+        f"allocated with the bf16 tree")
+    model4 = VCoderForCausalLM(cfg, q4)
+    totals = {k: 0 for k in ("flash", "vit", "bf16", "q8", "k8", "int4", "int8", "int8_scaled")}
+
+    # B=1 requests on the int4 model: a TTFT request and a 32-token request each.
+    rng = np.random.RandomState(0)
+    _serve(model4, tok, _images(rng, 300, 420), 2)  # warm-up
+    max_new = 32
+    fa.launches = va.launches = i4.launches = 0
+    i8.reset_launches()
+    reqs, prefills, steps = [], 0, 0
+    for h, w in [(480, 640), (720, 540), (375, 500)]:
+        pictures = _images(rng, h, w)
+        t1 = time.perf_counter()
+        _serve(model4, tok, pictures, 1)
+        ttft = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        _, res = _serve(model4, tok, pictures, max_new)
+        total = time.perf_counter() - t1
+        prefills, steps = prefills + 2, steps + max_new - 1
+        seqs = res.sequences
+        if not (seqs.shape == (1, max_new) and int(seqs.min()) >= 0
+                and int(seqs.max()) < cfg.text.vocab_size):
+            raise SystemExit(f"int4 generate: bad output {seqs}")
+        reqs.append(dict(ttft_ms=ttft * 1e3, decode_tok_s=(max_new - 1) / max(total - ttft, 1e-9)))
+        log(f"  int4 request {h}x{w}: TTFT {ttft * 1e3:.1f} ms, {max_new} tokens in "
+            f"{total * 1e3:.1f} ms, decode {reqs[-1]['decode_tok_s']:.1f} tok/s, first tokens "
+            f"{seqs[0, :8].tolist()}")
+    c = dict(flash=fa.launches, vit=va.launches, int4=i4.launches, int8=i8.launches,
+             int8_scaled=i8.launches_scaled)
+    log(f"  int4 B=1: TTFT p50 {np.median([r['ttft_ms'] for r in reqs]):.1f} ms, decode p50 "
+        f"{np.median([r['decode_tok_s'] for r in reqs]):.1f} tok/s (host clock); launches over "
+        f"{prefills} prefills and {steps} decode steps: {json.dumps(c)}")
+    # Per prefill: 224 decoder and 138 tower W8A8 products (>= 256 tokens),
+    # lm_head on one token through K5, 32 flash launches, no ViT block (the
+    # quantized tower is unfused); per decode step 32 x 7 + lm_head K5.
+    want = dict(flash=32 * prefills, vit=0, int4=prefills + 225 * steps, int8=0,
+                int8_scaled=362 * prefills)
+    if c != want:
+        raise SystemExit(f"int4 generate: launches {c} != {want}")
+    for k in c:
+        totals[k] += c[k]
+
+    lk, lp, plan = _prefill_routes(q4, cfg, tok, _images(np.random.RandomState(7), 480, 640))
+    if lk.shape != (1, cfg.text.vocab_size) or not torch.isfinite(lk).all():
+        raise SystemExit("int4 prefill logits not finite / wrong shape")
+    rel = ((lk - lp).norm() / lp.norm()).item()
+    log(f"  int4 prefill T={plan.seq_len}: kernel vs plain route logits rel L2 {rel:.3e}, "
+        f"argmax {int(lk.argmax())} vs {int(lp.argmax())} (a reading)")
+
+    ids = tokenizer_depth_seg_token(PROMPT, tok)
+    reqs = [_prepared(ids, _images(np.random.RandomState(11), h, w), max_new)
+            for h, w in ENGINE_SIZES]
+    preps = [p for p, _ in reqs]
+    n = len(preps)
+    for label, qp, kw, paged in (("D (int4 weights, bf16 pools)", q4, {}, "k8"),
+                                 ("E (int8 weights, int8 pools)", q8, {"kv_quant": True}, "q8")):
+        (res,), st = _run_engine(label, cfg, qp, [preps], max_new=max_new, **kw)
+        ce = st["counts"][0]
+        d = ce["decode_dispatches"]
+        want = dict(flash=32 * n, vit=0, int8_scaled=362 * n, int8=0,
+                    int4=(225 * d + n) if qp is q4 else 0)
+        want[paged] = 32 * d
+        got = {k: ce[k] for k in want}
+        other = [k for k in ("bf16", "q8", "k8") if k != paged and ce[k]]
+        if got != want or other:
+            raise SystemExit(f"engine {label}: launches {got} != {want} (or {other} nonzero)")
+        for k in totals:
+            totals[k] += ce[k]
+        if qp is q4:
+            first = [r["tokens"][0] for r in res]
+            gen_first = [int(model4.generate([ids], *px, max_new_tokens=1).sequences[0, 0])
+                         for _, px in reqs]
+            log(f"  D vs int4 generate (prompt padded to 1280, not the engine's 1536 bucket): "
+                f"first tokens {sum(int(a == b) for a, b in zip(first, gen_first))}/{n} agree "
+                f"(a reading)")
+    if "--profile" in sys.argv:
+        profile_requests(model4, tok, _images(np.random.RandomState(8), 480, 640),
+                         tag="profile_int4")
+        profile_engine_decode(cfg, preps, [("engine_D_decode_step", q4, {}),
+                                           ("engine_E_decode_step", q8, {"kv_quant": True})],
+                              tag="profile_engine_quantized")
+    del q4, q8, model4
+    torch.cuda.empty_cache()
+    return totals
+
+
 def _kernel_class(name: str) -> str:
     if "flash_fwd" in name:
         return "flash_fwd (port)"
@@ -731,6 +1070,10 @@ def _kernel_class(name: str) -> str:
         return "gemm_bias (port)"
     if "paged_attn" in name:
         return "paged_attn (port)"
+    if "int4_matmul" in name or "int4_split_sum" in name:
+        return "int4_matmul (port)"
+    if "int8_mm" in name:
+        return "int8_mm (port)"
     low = name.lower()
     if any(k in low for k in ("nvjet", "gemm", "cutlass", "xmma", "sm90", "cublas", "splitk")):
         return "cuBLAS matmul"
@@ -771,25 +1114,26 @@ def _profile(label: str, fn, per: int = 1) -> dict:
     return out
 
 
-def profile_requests(model, tok, pictures) -> None:
+def profile_requests(model, tok, pictures, tag: str = "profile") -> None:
     """``--profile``: one TTFT request and one 32-token request of the B=1
-    path, printed as one ``profile: {...}`` JSON line."""
-    out = {label: _profile(label, lambda n=max_new: _serve(model, tok, pictures, n))
+    path, printed as one ``<tag>: {...}`` JSON line."""
+    out = {label: _profile(f"{tag} {label}", lambda n=max_new: _serve(model, tok, pictures, n))
            for label, max_new in (("ttft", 1), ("request_32", 32))}
-    log("profile: " + json.dumps(out))
+    log(f"{tag}: " + json.dumps(out))
 
 
-def profile_engine_decode(cfg, params, preps, steps: int = 8) -> None:
-    """``--profile``: the paged engine's decode step at B=8 (bf16 and int8
-    pools). All 8 requests are admitted first; the window covers ``steps``
-    pure decode steps. Printed as one ``profile_engine: {...}`` JSON line."""
+def profile_engine_decode(cfg, preps, engines, steps: int = 8,
+                          tag: str = "profile_engine") -> None:
+    """``--profile``: the paged engine's decode step at B=8, for each
+    ``(label, params, engine kwargs)`` of ``engines``. All 8 requests are
+    admitted first; the window covers ``steps`` pure decode steps. Printed
+    as one ``<tag>: {...}`` JSON line."""
     import torch
 
     from vcoder_tpu_torch.serve.paged_engine import PagedServingEngine
 
     out = {}
-    for label, kw in (("engine_bf16_decode_step", {}), ("engine_int8_decode_step",
-                                                         {"kv_quant": True})):
+    for label, params, kw in engines:
         eng = PagedServingEngine(cfg, params, max_batch=8, max_len=2048, page_size=64,
                                  eos_id=-1, device="cuda", **kw)
         for p in preps:
@@ -802,7 +1146,7 @@ def profile_engine_decode(cfg, params, preps, steps: int = 8) -> None:
         out[label] = _profile(label, lambda: [eng.step() for _ in range(steps)], per=steps)
         eng.close()
         torch.cuda.empty_cache()
-    log("profile_engine: " + json.dumps(out))
+    log(f"{tag}: " + json.dumps(out))
 
 
 def _flat(tree, prefix=""):
@@ -814,13 +1158,20 @@ def _flat(tree, prefix=""):
 
 
 def phase_checkpoint() -> None:
+    """The checkpoint entry point: a small DS checkpoint saved, then loaded
+    on the card three ways -- bf16, ``load_4bit`` and ``load_8bit`` -- and
+    served through ``generate``; each variant's prefill logits through the
+    kernels agree with the plain route."""
     import torch
 
     from vcoder_tpu_torch.builder import load_pretrained_model
     from vcoder_tpu_torch.checkpoint import save_pretrained
     from vcoder_tpu_torch.config import TextConfig, VCoderConfig, VisionConfig
+    from vcoder_tpu_torch.mm_tokens import tokenizer_depth_seg_token
     from vcoder_tpu_torch.models import vcoder as model_mod
     from vcoder_tpu_torch.multimodal import build_splice_plan
+    from vcoder_tpu_torch.ops import int4_matmul as i4
+    from vcoder_tpu_torch.ops import int8_matmul as i8
     from vcoder_tpu_torch.simple_tokenizer import SimpleTokenizer
 
     # Small, but with the kernels' head dims: 64 in the tower, 128 in the LM.
@@ -834,40 +1185,49 @@ def phase_checkpoint() -> None:
     )
     params = model_mod.init_vcoder_params(cfg, seed=1, dtype=torch.float32, device="cuda")
     tok = SimpleTokenizer.build_from_texts([PROMPT])
+    rgb, seg, depth = _images(np.random.RandomState(3), 90, 70)
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/vcoder_ds_llava-smoke"
         save_pretrained(path, params, cfg)
         tok.save_pretrained(path)
-        tokenizer, model, proc, seg_proc, depth_proc, ctx = load_pretrained_model(path)
-    if seg_proc is None or depth_proc is None or model.device.type != "cuda":
-        raise SystemExit("checkpoint: wrong processors or device")
-    saved, loaded = _flat(params), _flat(model.params)
-    if saved.keys() != loaded.keys() or not all(
-        torch.equal(saved[k].to(torch.bfloat16), loaded[k]) for k in saved
-    ):
-        raise SystemExit("checkpoint: loaded weights differ from the saved ones")
-    from vcoder_tpu_torch.mm_tokens import tokenizer_depth_seg_token
-
-    rgb, seg, depth = _images(np.random.RandomState(3), 90, 70)
-    px = [proc([a])["pixel_values"].to(torch.bfloat16) for a in (rgb, seg, depth)]
-    ids = tokenizer_depth_seg_token(PROMPT, tokenizer)
-    res = model.generate([ids], *px, max_new_tokens=8, tokenizer=tokenizer)
-    torch.cuda.synchronize()
-    plan = build_splice_plan([ids], num_patches=cfg.vision.num_patches, has_image=True,
-                             has_seg=True, has_depth=True, ds_mode=True)
-    arrays = model_mod.plan_to_arrays(plan, "cuda")
-    lk, _ = model_mod.prefill(model.params, model.config, arrays, *px, use_vcoder_emb=True)
-    lp, _ = model_mod.prefill(model.params, model.config, arrays, *px, use_vcoder_emb=True,
-                              attn_impl="xla")
-    err = (lk - lp).abs().max().item()
-    tol = 2e-2 * max(1.0, lp.abs().max().item())
-    ok = (res.sequences.shape == (1, 8) and torch.isfinite(lk).all().item() and err <= tol
-          and int(lk.argmax()) == int(lp.argmax()))
-    log(f"checkpoint: loaded {path.rsplit('/', 1)[-1]} via load_pretrained_model, "
-        f"tokens {res.sequences[0].tolist()}, prefill logits kernel vs plain max_abs_err "
-        f"{err:.3e} (tol {tol:.3e}) -> {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit("checkpoint phase failed")
+        for label, kw in (("bf16", {}), ("load_4bit", {"load_4bit": True}),
+                          ("load_8bit", {"load_8bit": True})):
+            tokenizer, model, proc, seg_proc, depth_proc, ctx = load_pretrained_model(path, **kw)
+            if seg_proc is None or depth_proc is None or model.device.type != "cuda":
+                raise SystemExit("checkpoint: wrong processors or device")
+            if not kw:
+                saved, loaded = _flat(params), _flat(model.params)
+                if saved.keys() != loaded.keys() or not all(
+                    torch.equal(saved[k].to(torch.bfloat16), loaded[k]) for k in saved
+                ):
+                    raise SystemExit("checkpoint: loaded weights differ from the saved ones")
+            px = [proc([a])["pixel_values"].to(torch.bfloat16) for a in (rgb, seg, depth)]
+            ids = tokenizer_depth_seg_token(PROMPT, tokenizer)
+            i4.launches = 0
+            i8.reset_launches()
+            res = model.generate([ids], *px, max_new_tokens=8, tokenizer=tokenizer)
+            torch.cuda.synchronize()
+            n_int4 = i4.launches
+            plan = build_splice_plan([ids], num_patches=cfg.vision.num_patches, has_image=True,
+                                     has_seg=True, has_depth=True, ds_mode=True)
+            arrays = model_mod.plan_to_arrays(plan, "cuda")
+            lk, _ = model_mod.prefill(model.params, model.config, arrays, *px,
+                                      use_vcoder_emb=True)
+            with plain_quant_route():
+                lp, _ = model_mod.prefill(model.params, model.config, arrays, *px,
+                                          use_vcoder_emb=True, attn_impl="xla")
+            err = (lk - lp).abs().max().item()
+            tol = 2e-2 * max(1.0, lp.abs().max().item())
+            ok = (res.sequences.shape == (1, 8) and torch.isfinite(lk).all().item()
+                  and err <= tol and int(lk.argmax()) == int(lp.argmax())
+                  and (n_int4 > 0) == (label == "load_4bit"))
+            log(f"checkpoint {label}: loaded {path.rsplit('/', 1)[-1]} via "
+                f"load_pretrained_model, tokens {res.sequences[0].tolist()}, int4_matmul "
+                f"launches in generate {n_int4}, prefill logits kernel vs plain route "
+                f"max_abs_err {err:.3e} (tol {tol:.3e}) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"checkpoint phase failed ({label})")
+            del model
 
 
 def main() -> int:
@@ -887,20 +1247,25 @@ def main() -> int:
     report: list = []
     phase_kernels(report)
     phase_paged_kernels(report)
+    phase_quant_kernels(report)
     cfg, params, model, tok = build_7b()
     main_counts = phase_main_path(cfg, params, model, tok)
     log("engines (phase 6): VCoder-DS-7B, max_batch 8, max_len 2048, page 64, EOS off")
     engine_counts = phase_engines(cfg, params, model, tok)
+    quant_counts = phase_quantized(cfg, params, tok)
     del params, model
     torch.cuda.empty_cache()
     # Each entry's launches: the sum over the driven paths, each counted from
     # 0 just before it ran and read just after.
     launches = {
-        "flash_fwd": main_counts["flash_fwd"] + engine_counts["flash"],
-        "vit_block": main_counts["vit_block"] + engine_counts["vit"],
-        "paged_attn_bf16": engine_counts["bf16"],
-        "paged_attn_q8": engine_counts["q8"],
-        "paged_attn_k8": engine_counts["k8"],
+        "flash_fwd": main_counts["flash_fwd"] + engine_counts["flash"] + quant_counts["flash"],
+        "vit_block": main_counts["vit_block"] + engine_counts["vit"] + quant_counts["vit"],
+        "paged_attn_bf16": engine_counts["bf16"] + quant_counts["bf16"],
+        "paged_attn_q8": engine_counts["q8"] + quant_counts["q8"],
+        "paged_attn_k8": engine_counts["k8"] + quant_counts["k8"],
+        "int4_matmul": quant_counts["int4"],
+        "int8_mm": quant_counts["int8"],
+        "int8_mm_scaled": quant_counts["int8_scaled"],
     }
     for entry in report:
         entry["launches"] = launches[entry["name"]]

@@ -144,3 +144,33 @@ def test_paged_wrappers_take_the_plain_versions_on_cpu():
     assert not pa.launches_by_window and "paged_attn" not in _kernels._LIBS
     with pytest.raises(ValueError, match="unsupported device"):
         pa.paged_attention(q[:, 0].to("meta"), kp[0], vp[0], table, lengths)
+
+
+def test_quantized_matmul_wrappers_take_the_plain_versions_on_cpu():
+    from vcoder_tpu_torch.ops import int4_matmul as i4
+    from vcoder_tpu_torch.ops import int8_matmul as i8
+    from vcoder_tpu_torch.ops import quant as tq
+
+    i4.launches = 0
+    i8.reset_launches()
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(3, 64).astype(np.float32))
+    qp = torch.from_numpy(rng.randint(-128, 128, (32, 40)).astype(np.int8))
+    assert torch.equal(i4.int4_matmul(x, qp), i4.int4_matmul_ref(x, qp))
+    a = torch.from_numpy(rng.randint(-127, 128, (20, 64)).astype(np.int8))
+    b = torch.from_numpy(rng.randint(-127, 128, (64, 24)).astype(np.int8))
+    sa, sb = torch.rand(20, 1), torch.rand(1, 24)
+    assert torch.equal(i8.int8_mm(a, b), i8.int8_mm_ref(a, b))
+    assert torch.equal(i8.int8_mm_scaled(a, b, sa, sb), i8.int8_mm_scaled_ref(a, b, sa, sb))
+    # Through qmatmul: the W8A8 branch and the int4 path below it.
+    w4 = tq.quantize(torch.from_numpy(rng.randn(64, 24).astype(np.float32)), bits=4)
+    tq.qmatmul(torch.randn(tq.W8A8_MIN_TOKENS, 64), w4)
+    tq.qmatmul(torch.randn(2, 64), w4)
+    assert i4.launches == i8.launches == i8.launches_scaled == 0
+    assert "int4_matmul" not in _kernels._LIBS and "int8_mm" not in _kernels._LIBS
+    with pytest.raises(ValueError, match="unsupported device"):
+        i4.int4_matmul(x.to("meta"), qp.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        i8.int8_mm(a.to("meta"), b.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        i8.int8_mm_scaled(a.to("meta"), b.to("meta"), sa, sb)

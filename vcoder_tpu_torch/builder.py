@@ -7,9 +7,11 @@ Returns the reference's 6-tuple (reference: vcoder_llava/model/builder.py)
 
 with the same name-based gating of the seg/depth processors and the same
 ``context_len``. The model lives on ``device`` (CUDA by default; raises when
-CUDA is absent unless ``device="cpu"``). Quantized loading and checkpoints
-over a ``model_base`` (adapter, LoRA) wait for later slices and raise
-``NotImplementedError``.
+CUDA is absent unless ``device="cpu"``). ``load_8bit`` / ``load_4bit``
+quantize the large matmul weights on the device after loading
+(``quant.quantize_params``, as ``vcoder_tpu/builder.py:203-206``).
+Checkpoints over a ``model_base`` (adapter, LoRA) wait for a later slice and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from vcoder_tpu_torch.config import VCoderConfig
 from vcoder_tpu_torch.device import resolve_device
 from vcoder_tpu_torch.mm_tokens import get_model_name_from_path
 from vcoder_tpu_torch.preprocess import CLIP_IMAGE_MEAN, process_images
+from vcoder_tpu_torch.quant import quantize_params
 
 
 class VCoderImageProcessor:
@@ -144,11 +147,11 @@ def load_pretrained_model(
     dev = resolve_device(device)
     if model_name is None:
         model_name = get_model_name_from_path(model_path)
-    if load_8bit or load_4bit:
-        raise NotImplementedError("quantized loading is not ported yet")
     if model_base is not None:
         raise NotImplementedError("adapter and LoRA checkpoints over a base are not ported yet")
     cfg, params = load_hf_checkpoint(model_path, dtype=dtype, device=dev)
+    if load_8bit or load_4bit:
+        params = quantize_params(params, bits=8 if load_8bit else 4)
 
     if tokenizer is None:
         tokenizer = _load_tokenizer(model_path)

@@ -26,6 +26,7 @@ import torch
 
 from vcoder_tpu_torch.config import TextConfig, VCoderConfig, VisionConfig, projector_depth
 from vcoder_tpu_torch.device import resolve_device
+from vcoder_tpu_torch.ops.quant import QuantizedTensor
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -327,10 +328,14 @@ def save_pretrained(model_dir: str, params: dict, cfg: VCoderConfig) -> None:
 
 
 def _map_tensors(tree, fn):
+    """``fn`` over every tensor of a parameter tree, into quantized leaves
+    (their ``q`` and ``scale``) too."""
     if isinstance(tree, dict):
         return {k: _map_tensors(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_map_tensors(v, fn) for v in tree]
+    if isinstance(tree, QuantizedTensor):
+        return QuantizedTensor(fn(tree.q), fn(tree.scale), tree.bits)
     return fn(tree)
 
 
@@ -348,17 +353,30 @@ def load_hf_checkpoint(model_dir: str, *, dtype=torch.bfloat16, device="cuda"):
     return cfg, params
 
 
+def _is_quantized(leaf) -> bool:
+    """A JAX ``QuantizedTensor`` leaf, matched by its name and fields: the
+    port imports nothing of the JAX package."""
+    return type(leaf).__name__ == "QuantizedTensor" and all(
+        hasattr(leaf, f) for f in ("q", "scale", "bits")
+    )
+
+
 def from_jax_params(params_np, cfg: VCoderConfig, device="cuda") -> dict:
     """The JAX package's parameter tree (layer-stacked ``[L, in, out]``),
     given as numpy arrays, -> the port's parameters on ``device``. The two
     layouts are the same, so this converts leaf by leaf (bf16 arrays travel
-    as their 16-bit patterns)."""
+    as their 16-bit patterns). A JAX ``QuantizedTensor`` leaf (its ``q`` and
+    ``scale`` as numpy, its ``bits``) becomes the port's
+    :class:`~vcoder_tpu_torch.ops.quant.QuantizedTensor` over the same bytes."""
     dev = resolve_device(device)
-    n_layers = np.asarray(params_np["lm"]["layers"]["q_proj"]).shape[0]
+    q_proj = params_np["lm"]["layers"]["q_proj"]
+    n_layers = np.shape(q_proj.q if _is_quantized(q_proj) else q_proj)[0]
     if n_layers != cfg.text.num_layers:
         raise ValueError(f"{n_layers} decoder layers, config says {cfg.text.num_layers}")
 
     def conv(a):
+        if _is_quantized(a):
+            return QuantizedTensor(conv(a.q), conv(a.scale), int(a.bits))
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":
             return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(dev)

@@ -6,11 +6,12 @@
   pre-layernorm; LayerNorm uses the population variance (``:72-78``).
 * ``select_layer=-2`` runs ``num_layers - 1`` blocks and skips the last block
   and the post-layernorm (``:101-109``); CLS is dropped after (``:197-198``).
-* With ``attn_impl`` "auto" the blocks take the fused attention-block route
-  (``ops/vit_attention.py``: the CUDA kernels on CUDA, the plain version on
-  the CPU), and the caller adds the out bias and the residual (``:277``).
-  The MLP stays plain torch (``FUSE_MLP_DEFAULT=False``, ``:118``).
-  ``attn_impl="xla"`` runs the unfused blocks through the plain attention.
+* With ``attn_impl`` "auto" and plain attention weights the blocks take the
+  fused attention-block route (``ops/vit_attention.py``: the CUDA kernels on
+  CUDA, the plain version on the CPU), and the caller adds the out bias and
+  the residual (``:277``). The MLP stays ``qmatmul`` (``FUSE_MLP_DEFAULT=False``,
+  ``:118``). ``attn_impl="xla"``, or quantized attention weights, run the
+  unfused blocks through the attention dispatcher.
 """
 
 from __future__ import annotations
@@ -103,6 +104,18 @@ def _mlp(x, lp, eps):
     return x + (qm(quick_gelu(qm(h, lp["fc1"]) + lp["fc1_bias"]), lp["fc2"]) + lp["fc2_bias"])
 
 
+def _fused_eligible(params: dict, attn_impl: str) -> bool:
+    """The fused attention-block route (``clip.py:121-157``) takes plain
+    attention weights only: quantized ones go through ``_run_blocks``, whose
+    ``qmatmul`` handles them (the MLP runs through ``qmatmul`` on both
+    routes). JAX's TPU-only conditions (backend, mesh, Mosaic tiling) have
+    no counterpart here."""
+    lp = params["layers"]
+    return attn_impl == "auto" and all(
+        isinstance(lp[k], torch.Tensor) for k in ("q_proj", "k_proj", "v_proj", "out_proj")
+    )
+
+
 def clip_encode(
     params: dict, cfg: VisionConfig, images: torch.Tensor, *, attn_impl: str = "auto"
 ) -> torch.Tensor:
@@ -121,7 +134,7 @@ def clip_encode(
     )
 
     n_blocks = _num_blocks(cfg)
-    if attn_impl == "auto":
+    if _fused_eligible(params, attn_impl):
         x = _run_blocks_fused(params, cfg, x, n_blocks)
     else:
         x = _run_blocks(params, cfg, x, n_blocks, attn_impl)

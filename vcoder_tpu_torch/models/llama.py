@@ -2,7 +2,9 @@
 
 * Parameters keep the JAX package's layer-stacked dict: matrices
   ``[L, in, out]`` (``x @ W``), norms ``[L, D]``; a Python loop over layers
-  replaces ``lax.scan``.
+  replaces ``lax.scan``. A matrix may be an int8/int4 ``QuantizedTensor``
+  (``ops/quant.py``): every product goes through ``qmatmul``, a layer's
+  slice is ``leaf[l]`` and ``L`` its logical ``shape[0]``.
 * RMSNorm normalizes in f32, casts to the input dtype, then multiplies by the
   weight (``llama.py:85-91``); RoPE is rotate-half over f32 positions
   (``:94-114``).

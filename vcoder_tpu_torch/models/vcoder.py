@@ -40,8 +40,14 @@ def init_vcoder_params(
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    return build_vcoder_params(cfg, gen, dtype=dtype, device=dev)
+
+
+def build_vcoder_params(cfg: VCoderConfig, gen: torch.Generator, *, dtype, device) -> dict:
+    """The parameter tree of :func:`init_vcoder_params`, drawn from ``gen``
+    on ``device`` as given (``"meta"`` gives the shapes alone)."""
     D_v, D_t = cfg.vision.hidden_size, cfg.text.hidden_size
-    kw = dict(dtype=dtype, device=dev)
+    kw = dict(dtype=dtype, device=device)
     params = {
         "lm": llama_mod.init_llama_params(gen, cfg.text, **kw),
         "vision_tower": clip_mod.init_clip_params(gen, cfg.vision, **kw),

@@ -46,6 +46,20 @@ _SIGNATURES = {
         + [_L] * 3  # q batch, token, head strides
         + [_F, _I, _P],  # scale quant stream
     ),
+    "int4_matmul": (
+        "int4_matmul",
+        [_P] * 4  # x qp part out
+        + [_I] * 3  # B K2 N
+        + [_L]  # x row stride
+        + [_I] * 3  # splits rows_per_split out_f32
+        + [_P],  # stream
+    ),
+    "int8_mm": (
+        "int8_mm",
+        [_P] * 5  # A B sa sb C
+        + [_I] * 5  # M N K scaled out_kind
+        + [_P],  # stream
+    ),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
