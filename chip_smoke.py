@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``vcoder_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --profile        # also torch.profiler: two B=1 requests and
+    python3 chip_smoke.py                  # every phase (1-4, 6, 7, 8, 5)
+    python3 chip_smoke.py --profile        # also torch.profiler: two B=1 requests,
                                            # the paged engine's decode step at B=8,
-                                           # in bf16 and with int4/int8 weights
+                                           # in bf16 and with int4/int8 weights, and
+                                           # one training step
+    python3 chip_smoke.py --faults         # only: K6's gates against faulty builds
+                                           # of flash_bwd.cu (K6_FAULTS)
 
 Phases, in order; any failure exits non-zero:
 
@@ -17,9 +20,14 @@ Phases, in order; any failure exits non-zero:
    forward, ViT block, the paged kernel in six cases (bf16 and int8
    decode, a verify window of 4, a 128-token chunk window, GQA with a
    length-0 row, an unstacked pool), the int4 decode matmul at B=1 and B=8
-   over the 7B gate/up, down and lm_head weights, and the int8 GEMM in both
-   forms at the decoder prefill (M=1280) and the tower (M=1731). Kernels and
-   yardsticks are timed by CUDA-graph replay, the plain versions eagerly.
+   over the 7B gate/up, down and lm_head weights, the int8 GEMM in both
+   forms at the decoder prefill (M=1280) and the tower (M=1731), and the
+   flash backward (K6: the dq and dkv kernels) on the rows of phase 8's first
+   batch (B=4, T=2048, H=KH=32, right-padded, the output gradient 0 on pad
+   rows) and in a GQA case with key-mask holes, a row that sees no key and
+   T < S, gated on relative L2 per gradient and per 64-row tile and on exact
+   zeros where the plain gradient is 0. Kernels and yardsticks are timed by
+   CUDA-graph replay (SDPA's backward eagerly), the plain versions eagerly.
 4. Main path at full width: VCoder-DS-7B with seeded random bf16 weights
    (built once, shared with phase 6) serves 3 requests (RGB + seg + depth,
    non-square, made from a numpy seed) through ``process_images``,
@@ -42,6 +50,16 @@ Phases, in order; any failure exits non-zero:
    block; engine D (int4 weights, bf16 pools) and E (int8 weights, int8
    pools) on engine A's traffic, gated on the same counts per admission
    and per decode step.
+8. Training at full width: VCoder-DS-7B's stage-3 adapters (seg and depth
+   projectors, ``vcoder_lm_emb``) trained over the phase-4 bf16 base
+   through ``Trainer``: 4 steps of B=4 over 20 in-memory DS samples,
+   ``remat="dots"``, the trainable leaves cloned first. Gates: finite
+   losses and grad norms; non-zero seg-projector and ``vcoder_lm_emb``
+   gradients on step 1 and an exactly zero depth-projector gradient; the
+   weights unmoved by step 1 (lr 0) and moved by step 2; per step 32 K6
+   calls, 64 flash forward launches (32 + 32 recomputed) and 23 ViT-block
+   launches, and none of a kernel without a backward; the kernel route's
+   trainable gradients within a bound of the plain route's on one sample.
 5. The checkpoint entry point: ``save_pretrained`` writes a small DS
    checkpoint, ``load_pretrained_model`` loads it on the card as bf16, with
    ``load_4bit`` and with ``load_8bit``, and ``generate`` runs on each;
@@ -203,6 +221,308 @@ def check_flash(case: dict, report: list) -> None:
                        replaces="vcoder_tpu/ops/flash_attention.py:216",
                        launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, status="ok"))
+
+
+def _flash_bwd_case(name, B, T, S, H, KH, *, layout=None, holes=False, dead_row=False, seed=0):
+    """Inputs for one flash-backward comparison: causal, D=128, and the
+    output gradient ``dout``. With ``layout`` (the positions [B,T] and key
+    mask [B,S] of a training batch, :func:`training_layout`) the rows are
+    the batch's: right-padded, pads at position 0, and ``dout`` is 0 on the
+    pad rows, as the loss leaves it in training; q/k/v are drawn on the card
+    (numpy takes seconds for ~100 M normals). Otherwise the layout of
+    :func:`_flash_case`, with ``dout`` drawn on every row."""
+    import torch
+
+    if layout is None:
+        case = _flash_case(name, B, T, S, H, KH, 128, causal=True, holes=holes,
+                           dead_row=dead_row, seed=seed)
+    else:
+        pos, mask = (np.ascontiguousarray(a, np.int32) for a in layout)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+        t = lambda a: torch.from_numpy(a).to("cuda")
+        case = dict(name=name, q=randn(B, T, H, 128), k=randn(B, S, KH, 128),
+                    v=randn(B, S, KH, 128), pos=t(pos), mask=t(mask), causal=True,
+                    np_pos=pos, np_mask=mask)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+    dout = torch.randn(case["q"].shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    if layout is not None:  # T == S: query row t is valid where key t is
+        dout *= case["mask"][:, :T, None, None].to(dout.dtype)
+    case["dout"] = dout
+    return case
+
+
+# K6 against its plain version. Both round P and dS to bf16 at the same
+# places but sum in f32 in other orders (and exp differs in the last ulp),
+# so an element on a rounding boundary may land one bf16 step apart. Gates,
+# for each of dq, dk and dv: max-abs error within 2e-2 of the gradient's
+# largest magnitude (at least 2e-2); the relative L2 of the whole gradient; the
+# worst relative L2 of one 64-row tile (a query tile of one head for dq, a
+# key tile of one KV head for dk and dv: a block's output, so a tile the
+# kernel got wrong cannot hide under the norm of the others); and where the
+# plain version's row (one head's D values) is all zero -- pad rows, masked
+# keys, a row that sees no key -- the kernel's stays below 1e-4 of the
+# gradient's largest magnitude. (A row that sees one key has dq = 0 in exact
+# arithmetic, but dP and delta are summed in other orders, so the kernel
+# reads rounding noise there.)
+K6_MAX_ABS = 2e-2
+K6_REL_L2 = 1e-3
+K6_TILE_REL_L2 = 1e-2
+K6_ZERO_ROW = 1e-4
+
+
+def flash_bwd_agreement(got, ref) -> dict:
+    """The readings of the K6 gates for (dq, dk, dv) against the plain
+    version's, and ``ok``: every gate held and every value is finite."""
+    import torch
+    import torch.nn.functional as F
+
+    out, ok = {}, True
+    for nm, a, r in zip(("dq", "dk", "dv"), got, ref):
+        a, r = a.float(), r.float()
+        d = (a - r).square()
+        rel = (d.sum() / r.square().sum().clamp_min(1e-30)).sqrt().item()
+        B, N, Hx, D = r.shape
+        pad = (-N) % 64
+
+        def tiles(x):  # [B, N, Hx, D] -> per (batch, 64-row tile, head) sums
+            return F.pad(x, (0, 0, 0, 0, 0, pad)).reshape(B, -1, 64, Hx, D).sum(dim=(2, 4))
+
+        dt, rt = tiles(d), tiles(r.square())
+        live = rt > 0
+        worst = (dt[live] / rt[live]).sqrt().max().item() if bool(live.any()) else 0.0
+        top = r.abs().max().item()
+        zero_rows = r.abs().amax(-1) == 0
+        stray = a.abs().amax(-1)[zero_rows].max().item() if bool(zero_rows.any()) else 0.0
+        finite = bool(torch.isfinite(a).all())
+        err = (a - r).abs().max().item()
+        max_abs_ok = err <= K6_MAX_ABS * max(1.0, top)
+        good = (max_abs_ok and rel <= K6_REL_L2 and worst <= K6_TILE_REL_L2
+                and stray <= K6_ZERO_ROW * max(top, 1e-30) and finite)
+        out[nm] = dict(rel_l2=rel, worst_tile_rel_l2=worst, zero_row_max=stray,
+                       max_abs_err=err, max_ref=top, max_abs_ok=max_abs_ok, finite=finite,
+                       ok=good)
+        ok &= good
+    out["ok"] = ok
+    return out
+
+
+def _log_agreement(name: str, agree: dict) -> None:
+    for nm in ("dq", "dk", "dv"):
+        r = agree[nm]
+        log(f"kernel {name}: {nm} rel L2 {r['rel_l2']:.3e} (tol {K6_REL_L2}), worst 64-row "
+            f"tile {r['worst_tile_rel_l2']:.3e} (tol {K6_TILE_REL_L2}), largest value in the "
+            f"plain version's zero rows {r['zero_row_max']:.3e} (tol {K6_ZERO_ROW} of max|ref|), "
+            f"max_abs_err {r['max_abs_err']:.3e} (tol {K6_MAX_ABS} of max|ref| "
+            f"{r['max_ref']:.3f}) -> {'ok' if r['ok'] else 'FAIL'}")
+
+
+def check_flash_bwd(case: dict, report: list) -> None:
+    """K6 against its plain version on one case: dq, dk and dv of the
+    backward pair (the dq kernel, then the dkv kernel) under the gates of
+    :func:`flash_bwd_agreement`; with ``case["report"]`` also the pair's
+    time, the plain version's, and SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from vcoder_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, pos, mask, dout = (case[x] for x in ("q", "k", "v", "pos", "mask", "dout"))
+    B, T, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    scale = D**-0.5
+    out, lse = fa.launch_flash_fwd(q, k, v, pos, mask, causal=True, scale=scale)
+    run = lambda: fa.launch_flash_bwd(q, k, v, out, lse, dout, pos, mask,
+                                      causal=True, scale=scale)
+    got = run()
+    ref = fa.flash_bwd_ref(q, k, v, out, lse, dout, pos, mask, causal=True)
+    torch.cuda.synchronize()
+    agree = flash_bwd_agreement(got, ref)
+    _log_agreement(case["name"], agree)
+    if not agree["ok"]:
+        raise SystemExit(f"{case['name']}: flash backward disagrees with its plain version")
+    if not case.get("report"):
+        return
+    ms = graph_ms([run] * 3)
+    plain_ms = cuda_ms(lambda: fa.flash_bwd_ref(q, k, v, out, lse, dout, pos, mask, causal=True),
+                       iters=2, warmup=1)
+    # Yardstick: SDPA's backward on the same inputs, boolean mask, timed only.
+    kpos = torch.arange(S, device="cuda")
+    bmask = (mask[:, None, :].bool() & (kpos[None, None, :] <= pos[:, :, None]))[:, None]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bmask, enable_gqa=(H != KH))
+    do_t = dout.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True),
+                     iters=3, warmup=1)
+    del o, qt, kt, vt
+    # Work these inputs need: five 2*D products over each visible (query,
+    # key) pair of each head; q, k, v, out, dout, lse, positions and mask
+    # read once, dq, dk and dv written once.
+    vis = (case["np_mask"][:, None, :].astype(bool)
+           & (np.arange(S)[None, None, :] <= case["np_pos"][:, :, None]))
+    pairs = float(vis.sum()) * H
+    flops = 10.0 * D * pairs
+    nbytes = (2 * 4 * (B * T * H * D + B * S * KH * D)  # q out dout dq, k v dk dv
+              + B * H * T * 4 + B * T * 4 + B * S * 4)
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"  {case['name']}: kernels {ms:.4f} ms  plain "
+        f"{plain_ms:.4f} ms  sdpa backward {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
+        f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB)")
+    report.append(dict(name="flash_bwd", route="cuda",
+                       source="vcoder_tpu_torch/csrc/flash_bwd.cu",
+                       replaces="vcoder_tpu/ops/flash_attention.py:446",
+                       launches=0,
+                       max_abs_err=max(agree[nm]["max_abs_err"] for nm in ("dq", "dk", "dv")),
+                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_ms, status="ok"))
+
+
+def _k6_cases(layout):
+    """Phase 3's two K6 cases: the training step's first batch (``layout``)
+    and the GQA case."""
+    pos, mask = layout
+    B, T = pos.shape
+    lens = [int(n) for n in np.asarray(mask).sum(axis=1)]
+    yield _flash_bwd_case(f"flash_bwd B={B} T={T} H=KH=32 rows {lens}", B, T, T, 32, 32,
+                          layout=layout, seed=5)
+    yield _flash_bwd_case("flash_bwd GQA 32q/8kv, kv_mask holes, a fully-masked row, S>T",
+                          2, 200, 333, 32, 8, holes=True, dead_row=True, seed=6)
+
+
+def phase_flash_bwd_kernels(report: list, layout) -> None:
+    """K6 against its plain version at the training step's shape -- the
+    rows of the first batch phase 8's ``Trainer`` collates (B=4, T its
+    bucket, H=KH=32, right-padded rows of different lengths) -- and in a GQA
+    case (H=32, KH=8) with key-mask holes, a row that sees no key and T < S."""
+    import torch
+
+    from vcoder_tpu_torch.ops import flash_attention as fa
+
+    for i, case in enumerate(_k6_cases(layout)):
+        case["report"] = i == 0
+        check_flash_bwd(case, report)
+        del case
+        torch.cuda.empty_cache()
+    fa.launches = fa.bwd_launches = 0  # comparison launches do not count
+
+
+# Faults planted in copies of csrc/flash_bwd.cu for ``--faults``: each
+# replaces one line of the source. The K6 gates must fail every one.
+K6_FAULTS = {
+    "dkv skips query tile 1": (
+        "if (!__syncthreads_or(sees)) continue;",
+        "if (!__syncthreads_or(sees) || q0 == BQ) continue;"),
+    "dkv skips the diagonal query tile of the key tiles from 1024 on": (
+        "if (!__syncthreads_or(sees)) continue;",
+        "if (!__syncthreads_or(sees) || (kv0 >= 1024 && q0 == kv0)) continue;"),
+    "dkv drops each key's own query row (< for <=)": (
+        "(!causal || kv0 + kl <= pos_s[ql])",
+        "(!causal || kv0 + kl < pos_s[ql])"),
+    "dq skips key tile 1": (
+        "for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {",
+        "for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {\n    if (kv0 == BK) continue;"),
+}
+
+
+def build_k6_faults(tmp: str) -> dict:
+    """One library per fault of ``K6_FAULTS``, built in parallel from a
+    changed copy of ``flash_bwd.cu`` in ``tmp``; returns {fault: library}."""
+    from pathlib import Path
+
+    from vcoder_tpu_torch.ops import _kernels
+
+    src = (_kernels.SRC_DIR / "flash_bwd.cu").read_text()
+    procs = {}
+    for i, (label, (old, new)) in enumerate(K6_FAULTS.items()):
+        if src.count(old) != 1:
+            raise SystemExit(f"fault {label!r}: its line is not in flash_bwd.cu exactly once")
+        cu, so = Path(tmp) / f"fault{i}.cu", Path(tmp) / f"libfault{i}.so"
+        cu.write_text(src.replace(old, new))
+        procs[label] = (subprocess.Popen(_kernels.nvcc_command(cu, so), stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for label, (proc, so) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for fault {label!r}:\n{text}")
+        libs[label] = _kernels.load("flash_bwd", so)
+    return libs
+
+
+@contextlib.contextmanager
+def k6_library(cdll):
+    """``launch_flash_bwd`` runs ``cdll`` (a faulty build) inside the block."""
+    from vcoder_tpu_torch.ops import _kernels
+
+    real = _kernels.lib("flash_bwd")
+    _kernels._LIBS["flash_bwd"] = cdll
+    try:
+        yield
+    finally:
+        _kernels._LIBS["flash_bwd"] = real
+
+
+def phase_k6_faults(layout, ds) -> bool:
+    """``--faults``: every fault of ``K6_FAULTS`` through phase 3's K6 cases
+    (each must fail the gates, which the sound kernel passes), then through
+    phase 8's kernel-route check on the 7B weights (a reading of what that
+    gate can see). Returns True when the K6 gates passed the sound kernel in
+    both cases and failed every fault in at least one (the late-tile fault
+    has nothing to change in the GQA case)."""
+    import torch
+
+    from vcoder_tpu_torch.ops import flash_attention as fa
+    from vcoder_tpu_torch.train.step import trainable_leaves
+
+    failed, summary = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_k6_faults(tmp)
+        for case in _k6_cases(layout):
+            q, k, v, pos, mask, dout = (case[x] for x in ("q", "k", "v", "pos", "mask", "dout"))
+            out, lse = fa.launch_flash_fwd(q, k, v, pos, mask, causal=True,
+                                           scale=q.shape[-1] ** -0.5)
+            ref = fa.flash_bwd_ref(q, k, v, out, lse, dout, pos, mask, causal=True)
+            for label, cdll in [("sound", None)] + list(libs.items()):
+                with k6_library(cdll) if cdll is not None else contextlib.nullcontext():
+                    got = fa.launch_flash_bwd(q, k, v, out, lse, dout, pos, mask, causal=True,
+                                              scale=q.shape[-1] ** -0.5)
+                torch.cuda.synchronize()
+                agree = flash_bwd_agreement(got, ref)
+                # For comparison: what the max-abs gate alone would say.
+                former = all(agree[nm]["max_abs_ok"] for nm in ("dq", "dk", "dv"))
+                _log_agreement(f"{case['name']} [{label}]", agree)
+                log(f"  [{label}] K6 gates {'pass' if agree['ok'] else 'fail'}; the max-abs "
+                    f"gate alone would {'pass' if former else 'fail'}")
+                failed[label] = failed.get(label, False) or not agree["ok"]
+                summary.setdefault(label, []).append(dict(
+                    case=case["name"], gates_pass=agree["ok"], former_gate_pass=former,
+                    **{nm: {x: agree[nm][x] for x in ("rel_l2", "worst_tile_rel_l2",
+                                                      "zero_row_max")}
+                       for nm in ("dq", "dk", "dv")}))
+            del case, q, k, v, out, lse, ref, got
+            torch.cuda.empty_cache()
+
+        cfg, params, model, _ = build_7b()
+        del model
+        stage = "vcoder_ds"
+        for t in trainable_leaves(params, stage).values():
+            t.requires_grad_(True)
+        T = layout[0].shape[1]
+        plain = None
+        for label, cdll in [("sound", None)] + list(libs.items()):
+            with k6_library(cdll) if cdll is not None else contextlib.nullcontext():
+                r = route_agreement(cfg, params, ds, T, stage, plain)
+            plain, rel = r["plain"], r["rel"]
+            summary[label].append(dict(case="route", rel_l2=rel, per_leaf=r["per_leaf"],
+                                       loss_kernel=r["loss_kernel"], loss_plain=r["loss_plain"],
+                                       route_gate_pass=rel <= GRAD_ROUTE_REL_L2))
+            log(f"  [{label}] phase-8 route: trainable gradients rel L2 {rel:.3e} -> the "
+                f"{GRAD_ROUTE_REL_L2} gate would {'pass' if rel <= GRAD_ROUTE_REL_L2 else 'fail'}")
+    log("faults: " + json.dumps(summary))
+    return not failed.pop("sound") and all(failed.values())
 
 
 def check_vit_block(report: list) -> None:
@@ -1063,9 +1383,266 @@ def phase_quantized(cfg, params, tok) -> dict:
     return totals
 
 
+QUESTIONS = ["What objects can be seen in the image?", "What is in the image?",
+             "Which objects are present, and in what depth order?",
+             "Describe the objects you can perceive."]
+OBJECTS = ["person", "car", "wall", "tree", "sky", "road", "dog", "bench", "window", "grass",
+           "building", "bicycle", "table", "chair", "lamp"]
+
+
+class DSSamples:
+    """An in-memory stage-3 dataset with the interface the Trainer reads
+    (that of the JAX package's ``VCoderDataset``): ``n`` VCoder-DS samples,
+    each a ``<depth>\n<seg>\n<image>\n`` question and an answer of 6-24
+    object words, tokenized by the port's ``train/preprocess`` with a
+    word-level tokenizer, and three ``size`` x ``size`` pictures (RGB, seg,
+    depth) drawn from a numpy seed and normalized like CLIP's processor."""
+
+    def __init__(self, n: int, size: int = 336, seed: int = 0):
+        from vcoder_tpu_torch.simple_tokenizer import SimpleTokenizer
+        from vcoder_tpu_torch.train.preprocess import preprocess
+
+        rng = np.random.RandomState(seed)
+        self.tokenizer = SimpleTokenizer()
+        mean = np.asarray([0.48145466, 0.4578275, 0.40821073], np.float32)
+        std = np.asarray([0.26862954, 0.26130258, 0.27577711], np.float32)
+        self.samples, self.modality_lengths = [], []
+        for _ in range(n):
+            q = QUESTIONS[rng.randint(len(QUESTIONS))]
+            words = rng.choice(OBJECTS, rng.randint(6, 25))
+            answer = "The objects present in the image are: " + ", ".join(words) + "."
+            conv = [{"from": "human", "value": f"<depth>\n<seg>\n<image>\n{q}"},
+                    {"from": "gpt", "value": answer}]
+            data = preprocess([conv], self.tokenizer, has_image=True, has_seg=True,
+                              has_depth=True, version="llava_v1")
+            pics = [(rng.randint(0, 256, (size, size, 3)).astype(np.float32) / 255.0 - mean) / std
+                    for _ in range(3)]
+            self.samples.append(dict(input_ids=data["input_ids"][0], labels=data["labels"][0],
+                                     image=pics[0], seg=pics[1], depth=pics[2]))
+            self.modality_lengths.append(sum(len(c["value"].split()) for c in conv))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i: int) -> dict:
+        return self.samples[i]
+
+
+def train_args(output_dir: str):
+    """Phase 8's ``TrainArgs``: stage ``vcoder_ds``, B=4, ``remat="dots"``
+    (the JAX drivers' defaults), no checkpoint within the run."""
+    from vcoder_tpu_torch.train.trainer import TrainArgs
+
+    return TrainArgs(output_dir=output_dir, stage="vcoder_ds", per_device_train_batch_size=4,
+                     remat="dots", save_steps=10**9, dataloader_workers=4)
+
+
+def training_layout(cfg, ds):
+    """(positions [B,T], key mask [B,T]) as numpy int32: the rows of the
+    first batch phase 8's ``Trainer`` collates from ``ds`` (its sampler
+    order and bucket, through ``train.trainer.epoch_batches``, on the CPU)."""
+    from vcoder_tpu_torch.train.trainer import epoch_batches
+
+    batches = epoch_batches(cfg, ds, train_args(""), 0, device="cpu")  # writes nothing
+    batch = next(batches)
+    batches.close()
+    return (batch["position_ids"].numpy().astype(np.int32),
+            batch["attn_mask"].numpy().astype(np.int32))
+
+
+def _with_cloned(tree, paths, prefix=""):
+    """``tree`` with the leaves at ``paths`` cloned (others shared)."""
+    if isinstance(tree, dict):
+        return {k: _with_cloned(v, paths, f"{prefix}/{k}" if prefix else k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_with_cloned(v, paths, f"{prefix}/{i}") for i, v in enumerate(tree)]
+    return tree.clone() if prefix in paths else tree
+
+
+# Kernel route against plain route: the bound on the relative L2 of the
+# trainable gradients of one B=1 sample through 32 bf16 layers of random
+# weights. Sound runs read ~0.055 (bf16 prefill logits read 0.049 the same
+# way); a planted K6 fault reads at most PERF.md's figures, most of them
+# under the bound: this gate catches a cut or grossly wrong gradient, and
+# phase 3's K6 gates are the check of the kernel itself.
+GRAD_ROUTE_REL_L2 = 0.2
+
+
+def route_agreement(cfg, params, ds, T, stage, plain=None) -> dict:
+    """The kernel route's trainable gradients against the plain route's on
+    one sample (``ds[0]`` padded to ``T``) through every layer with
+    per-layer remat: ``attn_impl="auto"`` (the kernels) against ``"xla"``
+    (plain torch, which must launch no kernel). ``plain``: the plain
+    route's (loss, gradients) from an earlier call on the same weights.
+    Returns the relative L2 over all trainable gradients and per leaf, both
+    losses, and ``plain``."""
+    import torch
+
+    from vcoder_tpu_torch.models import vcoder as model_mod
+    from vcoder_tpu_torch.ops import flash_attention as fa
+    from vcoder_tpu_torch.ops import vit_attention as va
+    from vcoder_tpu_torch.train.collator import collate_batch
+    from vcoder_tpu_torch.train.step import trainable_leaves
+
+    batch = collate_batch([ds[0]], num_patches=cfg.vision.num_patches, ds_mode=True,
+                          use_seg=True, use_depth=True, image_size=cfg.vision.image_size,
+                          pad_to=T, device="cuda")
+    leaves = trainable_leaves(params, stage)
+
+    def route_grads(attn_impl):
+        loss = model_mod.train_forward(params, cfg, batch, batch["images"], batch["segs"],
+                                       batch["depths"], use_vcoder_emb=True,
+                                       attn_impl=attn_impl, remat=True)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        return loss.item(), {k: g for k, g in zip(leaves, grads) if g is not None}
+
+    lk, gk = route_grads("auto")
+    if plain is None:
+        before = (fa.launches, fa.bwd_launches, va.launches)
+        plain = route_grads("xla")
+        if (fa.launches, fa.bwd_launches, va.launches) != before:
+            raise SystemExit("training phase: the plain route launched kernels")
+    lp, gp = plain
+    if set(gk) != set(gp):
+        raise SystemExit(f"training phase: the routes differentiate other leaves "
+                         f"({sorted(gk)} vs {sorted(gp)})")
+    torch.cuda.synchronize()
+    num = sum((gk[k].float() - gp[k].float()).square().sum() for k in gp)
+    den = sum(gp[k].float().square().sum() for k in gp)
+    per_leaf = {k: ((gk[k].float() - gp[k].float()).norm() / gp[k].float().norm()).item()
+                for k in gp}
+    return dict(rel=(num / den).sqrt().item(), per_leaf=per_leaf, loss_kernel=lk,
+                loss_plain=lp, plain=plain)
+
+
+def phase_training(cfg, params, ds, layout) -> dict:
+    """Phase 8: stage-3 adapter training at full width through ``Trainer``:
+    VCoder-DS-7B's seg projector, depth projector and ``vcoder_lm_emb``
+    trained over the frozen bf16 base, 4 steps of B=4 with ``remat="dots"``.
+    The trainable leaves are cloned first, so later phases see the untouched
+    weights. Gates: finite losses and grad norms; step 1's seg-projector and
+    ``vcoder_lm_emb`` gradients non-zero and the depth projector's exactly 0;
+    step 1 leaves the weights as they were (lr 0) and step 2 moves them;
+    per step 32 K6 backward calls, 64 K1 launches (32 + 32 recomputed),
+    23 ViT-block launches (the frozen tower, no grad), and no launch of a
+    kernel without a backward; step 1's rows are phase 3's K6 case
+    (``layout``); then the kernel route's trainable gradients against the
+    plain route's on one sample. Returns the launch counts."""
+    import torch
+
+    from vcoder_tpu_torch.ops import flash_attention as fa
+    from vcoder_tpu_torch.ops import int4_matmul as i4
+    from vcoder_tpu_torch.ops import int8_matmul as i8
+    from vcoder_tpu_torch.ops import paged_attention as pa
+    from vcoder_tpu_torch.ops import vit_attention as va
+    from vcoder_tpu_torch.train.collator import collate_batch
+    from vcoder_tpu_torch.train.step import trainable_leaves
+    from vcoder_tpu_torch.train.trainer import Trainer
+
+    steps = 4
+    records = []
+    with tempfile.TemporaryDirectory() as out:
+        args = train_args(out)
+        stage, B = args.stage, args.per_device_train_batch_size
+        tparams = _with_cloned(params, set(trainable_leaves(params, stage)))
+        initial = {p: t.clone() for p, t in trainable_leaves(tparams, stage).items()}
+        trainer = Trainer(cfg, tparams, ds, args, device="cuda")
+        inner = trainer.step_fn
+
+        def timed_step(p, state, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = inner(p, state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            leaves = trainable_leaves(p, stage)
+            records.append(dict(
+                ms=start.elapsed_time(end), T=int(batch["safe_ids"].shape[1]),
+                rows=(batch["position_ids"].cpu().numpy(), batch["attn_mask"].cpu().numpy()),
+                tokens=int(batch["attn_mask"].sum()),
+                labels=int((batch["labels"][:, 1:] != -100).sum()),
+                leaf_norms={k: float(v) for k, v in res[2]["leaf_grad_norms"].items()},
+                moved=[k for k, t in leaves.items() if not torch.equal(t, initial[k])]))
+            return res
+
+        trainer.step_fn = timed_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gib = torch.cuda.memory_allocated() / 2**30
+        fa.launches = fa.bwd_launches = va.launches = i4.launches = 0
+        pa.reset_launches()
+        i8.reset_launches()
+        t0 = time.perf_counter()
+        history = trainer.train(max_steps=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(flash_fwd=fa.launches, flash_bwd=fa.bwd_launches, vit_block=va.launches,
+                      paged_bf16=pa.launches_bf16, paged_q8=pa.launches_q8,
+                      paged_k8=pa.launches_k8, int4=i4.launches, int8=i8.launches,
+                      int8_scaled=i8.launches_scaled)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if "--profile" in sys.argv:
+            # One more step of the same shape, after the counters were read.
+            batch = collate_batch(ds.samples[:B], num_patches=cfg.vision.num_patches,
+                                  ds_mode=True, use_seg=True, use_depth=True,
+                                  image_size=cfg.vision.image_size, pad_to=records[0]["T"],
+                                  device="cuda")
+            prof = _profile("train_step", lambda: inner(tparams, trainer.opt_state, batch))
+            log("profile_train: " + json.dumps({"train_step": prof}))
+        del trainer
+    for h, r in zip(history, records):
+        log(f"  train step {h['step']}: T={r['T']} B={B}, {r['tokens']} tokens "
+            f"({r['labels']} labels), {r['ms']:.1f} ms (CUDA events), "
+            f"{r['tokens'] / r['ms'] * 1e3:.0f} tokens/s, loss {h['loss']:.4f}, "
+            f"grad_norm {h['grad_norm']:.4f}")
+    ms_p50 = float(np.median([r["ms"] for r in records[1:]]))
+    tok_s = float(np.median([r["tokens"] / r["ms"] * 1e3 for r in records[1:]]))
+    log(f"  training: {steps} steps in {wall:.1f} s; steps 2-{steps} p50 {ms_p50:.1f} ms, "
+        f"{tok_s:.0f} tokens/s; peak {peak_gib:.2f} GiB allocated ({base_gib:.2f} GiB before); "
+        f"step-1 grad norms {json.dumps(records[0]['leaf_norms'])}; launches {json.dumps(counts)}")
+    bad = []
+    if len(history) != steps or not all(np.isfinite([h["loss"], h["grad_norm"]]).all()
+                                        for h in history):
+        bad.append("non-finite loss or grad_norm")
+    norms = records[0]["leaf_norms"]
+    if not (all(v > 0 for k, v in norms.items() if k.startswith("seg_projector/"))
+            and norms["vcoder_lm_emb"] > 0):
+        bad.append("zero seg_projector / vcoder_lm_emb gradient on step 1")
+    if any(v != 0 for k, v in norms.items() if k.startswith("depth_projector/")):
+        bad.append("non-zero depth_projector gradient (depth goes through the seg projector)")
+    if records[0]["moved"] or not {"seg_projector/w/0", "vcoder_lm_emb"} <= set(records[1]["moved"]):
+        bad.append(f"weights moved {records[0]['moved']} after step 1 (lr 0) / "
+                   f"{records[1]['moved']} after step 2")
+    want = dict(flash_fwd=64 * steps, flash_bwd=32 * steps, vit_block=23 * steps, paged_bf16=0,
+                paged_q8=0, paged_k8=0, int4=0, int8=0, int8_scaled=0)
+    if counts != want:
+        bad.append(f"launches {counts} != {want}")
+    if not all(np.array_equal(a, b) for a, b in zip(records[0]["rows"], layout)):
+        bad.append("step 1's rows are not phase 3's K6 case")
+    if bad:
+        raise SystemExit("training phase: " + "; ".join(bad))
+
+    # Kernel route against plain route on one sample, per-layer remat.
+    r = route_agreement(cfg, tparams, ds, records[0]["T"], stage)
+    ok = r["rel"] <= GRAD_ROUTE_REL_L2
+    log(f"  B=1 T={records[0]['T']}: kernel vs plain route loss {r['loss_kernel']:.5f} vs "
+        f"{r['loss_plain']:.5f}, trainable gradients rel L2 {r['rel']:.3e} (bound "
+        f"{GRAD_ROUTE_REL_L2}) per leaf "
+        f"{json.dumps({k: round(v, 4) for k, v in r['per_leaf'].items()})} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("training phase: kernel route gradients disagree with the plain route")
+    del tparams, initial, r
+    torch.cuda.empty_cache()
+    return dict(counts=counts, step_ms_p50=ms_p50, tokens_s=tok_s, peak_gib=peak_gib)
+
+
 def _kernel_class(name: str) -> str:
     if "flash_fwd" in name:
         return "flash_fwd (port)"
+    if "flash_bwd" in name:
+        return "flash_bwd (port)"
     if "gemm_bias" in name:
         return "gemm_bias (port)"
     if "paged_attn" in name:
@@ -1242,24 +1819,49 @@ def main() -> int:
         print(f"chip_smoke: the vcoder_tpu_torch package is missing ({e})", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    laps = {}
+    if "--faults" in sys.argv:
+        return main_faults()
+
+    def lap(name):
+        laps[name] = round(time.perf_counter() - t_start - sum(laps.values()), 1)
+
     smi = phase_device()
     phase_build()
+    lap("build")
     report: list = []
     phase_kernels(report)
     phase_paged_kernels(report)
     phase_quant_kernels(report)
+    from vcoder_tpu_torch.config import VCoderConfig
+
+    cfg7 = VCoderConfig.standard("vcoder_ds_llava", "7b")
+    ds = DSSamples(20, cfg7.vision.image_size)
+    layout = training_layout(cfg7, ds)
+    lap("kernels")
+    phase_flash_bwd_kernels(report, layout)
+    lap("kernels_flash_bwd")
     cfg, params, model, tok = build_7b()
     main_counts = phase_main_path(cfg, params, model, tok)
+    lap("main_path")
     log("engines (phase 6): VCoder-DS-7B, max_batch 8, max_len 2048, page 64, EOS off")
     engine_counts = phase_engines(cfg, params, model, tok)
+    lap("engines")
     quant_counts = phase_quantized(cfg, params, tok)
+    lap("quantized")
+    log(f"training (phase 8): VCoder-DS-7B stage vcoder_ds, B=4, remat dots, {len(ds)} samples")
+    train_counts = phase_training(cfg, params, ds, layout)["counts"]
+    lap("training")
     del params, model
     torch.cuda.empty_cache()
     # Each entry's launches: the sum over the driven paths, each counted from
     # 0 just before it ran and read just after.
     launches = {
-        "flash_fwd": main_counts["flash_fwd"] + engine_counts["flash"] + quant_counts["flash"],
-        "vit_block": main_counts["vit_block"] + engine_counts["vit"] + quant_counts["vit"],
+        "flash_fwd": (main_counts["flash_fwd"] + engine_counts["flash"] + quant_counts["flash"]
+                      + train_counts["flash_fwd"]),
+        "flash_bwd": train_counts["flash_bwd"],
+        "vit_block": (main_counts["vit_block"] + engine_counts["vit"] + quant_counts["vit"]
+                      + train_counts["vit_block"]),
         "paged_attn_bf16": engine_counts["bf16"] + quant_counts["bf16"],
         "paged_attn_q8": engine_counts["q8"] + quant_counts["q8"],
         "paged_attn_k8": engine_counts["k8"] + quant_counts["k8"],
@@ -1271,12 +1873,28 @@ def main() -> int:
         entry["launches"] = launches[entry["name"]]
     log(f"launches on the driven paths: {json.dumps(launches)}")
     phase_checkpoint()
-    log(f"wall {time.perf_counter() - t_start:.1f} s on {smi}")
+    lap("checkpoint")
+    log(f"wall {time.perf_counter() - t_start:.1f} s on {smi}; by phase (s) {json.dumps(laps)}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def main_faults() -> int:
+    """``--faults``: phase 3's K6 gates and phase 8's route gate against the
+    faults of ``K6_FAULTS`` (no other phase; no result lines). Exits 0 when
+    the K6 gates pass the sound kernel and fail every fault."""
+    from vcoder_tpu_torch.config import VCoderConfig
+
+    phase_device()
+    phase_build()
+    cfg7 = VCoderConfig.standard("vcoder_ds_llava", "7b")
+    ds = DSSamples(20, cfg7.vision.image_size)
+    caught = phase_k6_faults(training_layout(cfg7, ds), ds)
+    log(f"K6 gates {'caught every planted fault' if caught else 'MISSED a planted fault'}")
+    return 0 if caught else 1
 
 
 if __name__ == "__main__":

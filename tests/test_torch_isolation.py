@@ -96,6 +96,23 @@ def test_other_devices_raise():
         fa.flash_fwd(q, q, q, causal=True)
 
 
+def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from vcoder_tpu_torch.models.vcoder import init_vcoder_params
+    from vcoder_tpu_torch.train.collator import collate_batch
+    from vcoder_tpu_torch.train.trainer import TrainArgs, Trainer
+
+    cfg = VCoderConfig.tiny("vcoder_ds_llava")
+    params = init_vcoder_params(cfg, device="cpu", dtype=torch.float32)
+    args = TrainArgs(output_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, params, [], args)  # device="cuda" by default
+    sample = dict(input_ids=[1, 5, 2], labels=[-100, 5, 2])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        collate_batch([sample], num_patches=cfg.vision.num_patches)
+    batch = collate_batch([sample], num_patches=cfg.vision.num_patches, device="cpu")
+    assert batch["labels"].device.type == "cpu"
+
+
 def test_paged_engine_and_worker_raise_without_cuda(no_cuda):
     from vcoder_tpu_torch.checkpoint import _map_tensors
     from vcoder_tpu_torch.models.vcoder import init_vcoder_params

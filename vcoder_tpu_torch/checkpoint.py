@@ -75,7 +75,7 @@ def write_safetensors(path: str, state: StateDict) -> None:
     header, blobs, offset = {}, [], 0
     for name in sorted(state):
         t = state[name].detach().to("cpu").contiguous()
-        raw = t.view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
         header[name] = {
             "dtype": _ST_NAMES[t.dtype],
             "shape": list(t.shape),

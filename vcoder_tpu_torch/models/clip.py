@@ -10,8 +10,10 @@
   fused attention-block route (``ops/vit_attention.py``: the CUDA kernels on
   CUDA, the plain version on the CPU), and the caller adds the out bias and
   the residual (``:277``). The MLP stays ``qmatmul`` (``FUSE_MLP_DEFAULT=False``,
-  ``:118``). ``attn_impl="xla"``, or quantized attention weights, run the
-  unfused blocks through the attention dispatcher.
+  ``:118``). ``attn_impl="xla"``, quantized attention weights, or a tower
+  that autograd differentiates (a stage that trains it, ``"all"``: the fused
+  kernel has no backward) run the unfused blocks through the attention
+  dispatcher, which is plain differentiable torch at the tower's head dim.
 """
 
 from __future__ import annotations
@@ -104,23 +106,34 @@ def _mlp(x, lp, eps):
     return x + (qm(quick_gelu(qm(h, lp["fc1"]) + lp["fc1_bias"]), lp["fc2"]) + lp["fc2_bias"])
 
 
-def _fused_eligible(params: dict, attn_impl: str) -> bool:
+def _fused_eligible(params: dict, attn_impl: str, differentiate: bool) -> bool:
     """The fused attention-block route (``clip.py:121-157``) takes plain
     attention weights only: quantized ones go through ``_run_blocks``, whose
     ``qmatmul`` handles them (the MLP runs through ``qmatmul`` on both
-    routes). JAX's TPU-only conditions (backend, mesh, Mosaic tiling) have
-    no counterpart here."""
+    routes). Nor does it take a tower that autograd differentiates
+    (``differentiate``, decided by the caller): the kernel has no backward.
+    JAX's TPU-only conditions (backend, mesh, Mosaic tiling) have no
+    counterpart here."""
     lp = params["layers"]
-    return attn_impl == "auto" and all(
+    plain = all(
         isinstance(lp[k], torch.Tensor) for k in ("q_proj", "k_proj", "v_proj", "out_proj")
     )
+    return attn_impl == "auto" and plain and not differentiate
 
 
 def clip_encode(
-    params: dict, cfg: VisionConfig, images: torch.Tensor, *, attn_impl: str = "auto"
+    params: dict,
+    cfg: VisionConfig,
+    images: torch.Tensor,
+    *,
+    attn_impl: str = "auto",
+    differentiate: bool = False,
 ) -> torch.Tensor:
     """[B, H, W, C] preprocessed channel-last pixels -> [B, num_patches(+1), D]
-    patch features at ``cfg.select_layer`` (CLS dropped for 'patch')."""
+    patch features at ``cfg.select_layer`` (CLS dropped for 'patch').
+    ``differentiate``: autograd differentiates the tower (a stage trains it),
+    so the unfused blocks run; a fused call on inputs that require grad
+    raises on CUDA (``ops/vit_attention.py``)."""
     B = images.shape[0]
     D = cfg.hidden_size
     eps = cfg.layer_norm_eps
@@ -134,7 +147,7 @@ def clip_encode(
     )
 
     n_blocks = _num_blocks(cfg)
-    if _fused_eligible(params, attn_impl):
+    if _fused_eligible(params, attn_impl, differentiate):
         x = _run_blocks_fused(params, cfg, x, n_blocks)
     else:
         x = _run_blocks(params, cfg, x, n_blocks, attn_impl)

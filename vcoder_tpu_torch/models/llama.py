@@ -12,6 +12,10 @@
   ``FUSED_APPEND=False`` branch) run the same layers over KV page pools
   (``ops/paged_attention.py``), bf16 or int8 with scales from
   :func:`_kv_quantize` (``:178``); the pools are written in place.
+* ``llama_forward(remat=...)`` (``:203,347-357``) checkpoints each layer of
+  the cache-free (training) path: ``True`` recomputes the whole layer in the
+  backward, ``"dots"`` keeps the projection products and recomputes the rest
+  (the analog of ``dots_with_no_batch_dims_saveable``).
 * The dense :class:`KVCache` (``:122-168``, unquantized form) is updated IN
   PLACE: each layer's new K/V rows are written into the preallocated
   ``[L, B, S, KH, HD]`` tensors (JAX's functional carry is no model for
@@ -24,10 +28,12 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from vcoder_tpu_torch.config import TextConfig
 from vcoder_tpu_torch.ops.attention import multi_head_attention
@@ -139,6 +145,29 @@ def _layer_out(lp: dict, cfg: TextConfig, x: torch.Tensor, attn: torch.Tensor) -
     return x + qm(F.silu(qm(h, lp["gate_proj"])) * qm(h, lp["up_proj"]), lp["down_proj"])
 
 
+def _dense_layer(lp, cfg, x, cos, sin, attn_mask, position_ids, attn_impl):
+    """One decoder layer over the T positions alone (no cache)."""
+    q, k, v = _layer_qkv(lp, cfg, x, cos, sin)
+    attn_out = multi_head_attention(
+        q, k, v, causal=True, q_positions=position_ids, kv_mask=attn_mask, impl=attn_impl
+    )
+    return _layer_out(lp, cfg, x, attn_out)
+
+
+# What ``remat="dots"`` keeps: the outputs of the 2-D products (every
+# projection of a layer; ``qmatmul`` folds the token axes into one), as
+# ``dots_with_no_batch_dims_saveable`` keeps dots without batch dimensions.
+# Attention products carry a batch dimension and are recomputed, as is the
+# flash forward, whose kernel is opaque to the policy.
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_PRODUCTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def llama_forward(
     params: dict,
     cfg: TextConfig,
@@ -149,6 +178,7 @@ def llama_forward(
     cache: Optional[KVCache] = None,
     write_offset: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",
+    remat=False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder stack (``llama.py:193``).
 
@@ -158,12 +188,23 @@ def llama_forward(
     (default ``cache.length``) into the cache in place and attention spans the
     whole cache; without one, attention is over the T positions.
 
+    ``remat`` (the cache-free path only) checkpoints each layer with
+    ``torch.utils.checkpoint`` (non-reentrant): ``True`` saves the layer's
+    input and recomputes the layer in the backward; ``"dots"`` also saves
+    the outputs of its seven projection products and recomputes the rest;
+    ``False`` saves everything. The attention of a checkpointed layer runs
+    again in the backward, so a differentiated pass over L layers on the
+    flash route launches the forward kernel 2L times (L, then L recomputed)
+    and the backward L times; with ``remat=False``, L and L.
+
     Returns (hidden [B, T, D] after the final norm, the cache or None).
     """
     B, T, D = inputs_embeds.shape
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
 
     use_cache = cache is not None
+    if remat and use_cache:
+        raise ValueError("remat applies to the cache-free path only")
     if use_cache:
         if write_offset is None:
             write_offset = cache.length
@@ -177,24 +218,30 @@ def llama_forward(
         rows_ix = torch.arange(B, device=inputs_embeds.device)[:, None]
         write_pos = write_offset[:, None] + torch.arange(T, device=inputs_embeds.device)[None, :]
 
+    context_fn = ckpt.noop_context_fn
+    if remat == "dots":
+        context_fn = functools.partial(ckpt.create_selective_checkpoint_contexts, _dots_policy)
     x = inputs_embeds
     L = params["layers"]["q_proj"].shape[0]
     for l in range(L):
         lp = {k: v[l] for k, v in params["layers"].items()}
+        if not use_cache:
+            args = (lp, cfg, x, cos, sin, attn_mask, position_ids, attn_impl)
+            if remat:
+                x = ckpt.checkpoint(
+                    _dense_layer, *args, use_reentrant=False, context_fn=context_fn
+                )
+            else:
+                x = _dense_layer(*args)
+            continue
         q, k, v = _layer_qkv(lp, cfg, x, cos, sin)
-        if use_cache:
-            # In-place token writes into this layer's slice of the cache.
-            cache.k[l][rows_ix, write_pos] = k.to(cache.k.dtype)
-            cache.v[l][rows_ix, write_pos] = v.to(cache.v.dtype)
-            attn_out = multi_head_attention(
-                q, cache.k[l], cache.v[l], causal=True,
-                q_positions=position_ids, kv_mask=new_kv_mask, impl=attn_impl,
-            )
-        else:
-            attn_out = multi_head_attention(
-                q, k, v, causal=True,
-                q_positions=position_ids, kv_mask=attn_mask, impl=attn_impl,
-            )
+        # In-place token writes into this layer's slice of the cache.
+        cache.k[l][rows_ix, write_pos] = k.to(cache.k.dtype)
+        cache.v[l][rows_ix, write_pos] = v.to(cache.v.dtype)
+        attn_out = multi_head_attention(
+            q, cache.k[l], cache.v[l], causal=True,
+            q_positions=position_ids, kv_mask=new_kv_mask, impl=attn_impl,
+        )
         x = _layer_out(lp, cfg, x, attn_out)
 
     new_cache = None

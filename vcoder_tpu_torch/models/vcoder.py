@@ -4,7 +4,11 @@
   ``[RGB; seg; depth]`` batch and applies the per-modality projectors.
 * ``assemble_embeddings`` consumes a host-built ``SplicePlan`` with two
   gathers and a select.
-* ``prefill`` / ``decode_step`` are the inference entry points.
+* ``prefill`` / ``decode_step`` are the inference entry points;
+  ``train_forward`` is the training loss.
+* The tower runs under ``torch.no_grad()`` unless one of its leaves is being
+  trained: JAX never differentiates a frozen tower (no tangent flows into
+  it), and the fused ViT-block kernel has no backward.
 
 Projector routing quirks kept for checkpoint fidelity (do not "fix"):
 ``mm2_projector`` replaces ``mm_projector`` when segs are present
@@ -15,16 +19,21 @@ Projector routing quirks kept for checkpoint fidelity (do not "fix"):
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from vcoder_tpu_torch.config import VCoderConfig
+from vcoder_tpu_torch.constants import IGNORE_INDEX
 from vcoder_tpu_torch.device import resolve_device
 from vcoder_tpu_torch.models import clip as clip_mod
 from vcoder_tpu_torch.models import llama as llama_mod
 from vcoder_tpu_torch.models.projectors import apply_projector, init_projector_params
 from vcoder_tpu_torch.multimodal import SplicePlan
+from vcoder_tpu_torch.ops._kernels import needs_grad
+from vcoder_tpu_torch.tree import named_leaves
 
 
 def init_vcoder_params(
@@ -72,6 +81,41 @@ def build_vcoder_params(cfg: VCoderConfig, gen: torch.Generator, *, dtype, devic
     return params
 
 
+def initialize_missing_modules(params: dict, cfg: VCoderConfig, *, seed: int = 0) -> dict:
+    """Add the adapter branches a stage trains when starting from a plain
+    LLaVA base (``vcoder.py:81``): a random seg projector (for IT a copy of
+    ``mm_projector``), a random depth projector, ``mm2_projector`` as a copy
+    of ``mm_projector`` and ``vcoder_lm_emb`` as a copy of the embedding
+    table, each only where ``cfg`` asks for it and ``params`` lacks it. The
+    random ones are drawn from a ``torch.Generator`` seeded with ``seed``, in
+    the embedding table's dtype and on its device (JAX's draws differ)."""
+    emb = params["lm"]["embed_tokens"]
+    gen = torch.Generator(device=emb.device)
+    gen.manual_seed(seed)
+    D_v, D_t = cfg.vision.hidden_size, cfg.text.hidden_size
+    kw = dict(dtype=emb.dtype, device=emb.device)
+
+    def copy(tree):
+        return {k: [t.clone() for t in v] for k, v in tree.items()}
+
+    if cfg.use_seg and "seg_projector" not in params:
+        if cfg.model_type == "vcoder_it_llava":
+            params["seg_projector"] = copy(params["mm_projector"])
+        else:
+            params["seg_projector"] = init_projector_params(
+                gen, cfg.seg_mm_projector_type, D_v, D_t, **kw
+            )
+    if cfg.use_depth and "depth_projector" not in params:
+        params["depth_projector"] = init_projector_params(
+            gen, cfg.depth_mm_projector_type, D_v, D_t, **kw
+        )
+    if cfg.use_mm2_proj and "mm2_projector" not in params:
+        params["mm2_projector"] = copy(params["mm_projector"])
+    if cfg.use_vcoder_lm_emb and "vcoder_lm_emb" not in params:
+        params["vcoder_lm_emb"] = emb.clone()
+    return params
+
+
 def encode_vision(
     params: dict,
     cfg: VCoderConfig,
@@ -102,9 +146,12 @@ def encode_vision(
     hw_c = stacks[0].shape[2:]
     tower_dtype = params["vision_tower"]["patch_embedding"].dtype
     stacked = torch.cat([x.reshape((-1,) + tuple(hw_c)) for x in stacks], dim=0)
-    feats = clip_mod.clip_encode(
-        params["vision_tower"], cfg.vision, stacked.to(tower_dtype), attn_impl=attn_impl
-    )
+    train_tower = needs_grad(*(t for _, t in named_leaves(params["vision_tower"])))
+    with contextlib.nullcontext() if train_tower else torch.no_grad():
+        feats = clip_mod.clip_encode(
+            params["vision_tower"], cfg.vision, stacked.to(tower_dtype), attn_impl=attn_impl,
+            differentiate=train_tower,
+        )
     P, D_v = feats.shape[1], feats.shape[2]
 
     def _take(x, offset):
@@ -224,14 +271,62 @@ def decode_step(
     return llama_mod.lm_head(params["lm"], hidden)[:, 0], cache
 
 
-def plan_to_arrays(plan: SplicePlan, device="cuda") -> dict:
-    """SplicePlan (numpy) -> dict of tensors on ``device``."""
+def train_forward(
+    params: dict,
+    cfg: VCoderConfig,
+    plan_arrays: dict,
+    images: Optional[torch.Tensor],
+    segs: Optional[torch.Tensor] = None,
+    depths: Optional[torch.Tensor] = None,
+    *,
+    use_vcoder_emb: bool = False,
+    attn_impl: str = "auto",
+    remat=True,
+) -> torch.Tensor:
+    """Shifted cross-entropy over the label positions (``vcoder.py:320``,
+    the reference's ``llava_llama.py:85-103``): the logits at t predict the
+    label at t + 1; ``IGNORE_INDEX`` labels are masked; the mean is over the
+    valid labels, with a floor of 1. ``remat`` goes to ``llama_forward``."""
+    vis_table = None
+    if images is not None or segs is not None or depths is not None:
+        vis_table = encode_vision(params, cfg, images, segs, depths, attn_impl=attn_impl)
+    embeds = assemble_embeddings(
+        params,
+        cfg,
+        plan_arrays["safe_ids"],
+        plan_arrays["is_text"],
+        plan_arrays["vis_idx"],
+        vis_table,
+        use_vcoder_emb=use_vcoder_emb,
+    )
+    hidden, _ = llama_mod.llama_forward(
+        params["lm"],
+        cfg.text,
+        embeds,
+        attn_mask=plan_arrays["attn_mask"],
+        position_ids=plan_arrays["position_ids"],
+        attn_impl=attn_impl,
+        remat=remat,
+    )
+    logits = llama_mod.lm_head(params["lm"], hidden)  # [B, T, V] f32
+    shift_labels = plan_arrays["labels"][:, 1:]
+    valid = shift_labels != IGNORE_INDEX
+    safe_labels = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
+    logp = F.log_softmax(logits[:, :-1], dim=-1)
+    nll = -torch.gather(logp, -1, safe_labels[..., None])[..., 0]
+    denom = valid.sum().clamp_min(1)
+    return (nll * valid).sum() / denom
+
+
+def plan_to_arrays(plan: SplicePlan, device="cuda", include_labels: bool = False) -> dict:
+    """SplicePlan (numpy) -> dict of tensors on ``device``; with
+    ``include_labels`` also the spliced ``labels`` (when the plan has them)."""
     dev = torch.device(device)
 
     def t(a, dtype):
         return torch.as_tensor(a, device=dev).to(dtype)
 
-    return {
+    out = {
         "safe_ids": t(plan.safe_ids, torch.int64),
         "is_text": t(plan.is_text, torch.bool),
         "vis_idx": t(plan.vis_idx, torch.int64),
@@ -239,3 +334,6 @@ def plan_to_arrays(plan: SplicePlan, device="cuda") -> dict:
         "position_ids": t(plan.position_ids, torch.int64),
         "seq_lens": t(plan.seq_lens, torch.int64),
     }
+    if include_labels and plan.labels is not None:
+        out["labels"] = t(plan.labels, torch.int64)
+    return out

@@ -6,7 +6,9 @@ is of the source, so a stale library is never loaded). The library is loaded
 with ``ctypes``; every pointer and the stream pass as ``c_void_p`` so ctypes
 never cuts them to 32 bits. Nothing is built at import time: the first call
 that needs a kernel builds it, and :func:`build` builds several sources in
-parallel (one ``nvcc`` process each).
+parallel (one ``nvcc`` process each). A wrapper whose kernel has no backward
+calls :func:`forbid_grad` before launching, so autograd never records an
+output without a ``grad_fn``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,13 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P]  # q k v qpos kvmask o lse
         + [_I] * 6  # B T S H KH D
         + [_L] * 9  # q/k/v batch, token, head strides
+        + [_F, _I, _P],  # scale causal stream
+    ),
+    "flash_bwd": (
+        "flash_bwd",
+        [_P] * 11  # q k v dout lse delta qpos kvmask dq dk dv
+        + [_I] * 6  # B T S H KH D
+        + [_L] * 12  # q/k/v/dout batch, token, head strides
         + [_F, _I, _P],  # scale causal stream
     ),
     "gemm_bias": ("gemm_bias", [_P, _P, _P, _P, _I, _I, _I, _P]),
@@ -84,6 +93,15 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def nvcc_command(src: Path, out: Path) -> list:
+    """The nvcc command line that builds ``src`` into the library ``out``."""
+    return [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-o", str(out), str(src),
+    ]
+
+
 def build(names: Iterable[str] = tuple(_SIGNATURES)) -> Dict[str, float]:
     """Compile the named sources that are not built yet, all at once.
     Returns the wall seconds of each compile that ran; raises with nvcc's
@@ -95,14 +113,10 @@ def build(names: Iterable[str] = tuple(_SIGNATURES)) -> Dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(tmp), str(SRC_DIR / f"{name}.cu"),
-        ]
         procs[name] = (
             subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                nvcc_command(SRC_DIR / f"{name}.cu", tmp),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ),
             tmp, out, time.perf_counter(),
         )
@@ -118,16 +132,22 @@ def build(names: Iterable[str] = tuple(_SIGNATURES)) -> Dict[str, float]:
     return seconds
 
 
+def load(name: str, path: Path) -> ctypes.CDLL:
+    """The library at ``path``, built from a source with ``csrc/<name>.cu``'s
+    entry point, with that entry point's C signature set."""
+    cdll = ctypes.CDLL(str(path))
+    sym, argtypes = _SIGNATURES[name]
+    fn = getattr(cdll, sym)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return cdll
+
+
 def lib(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     if name not in _LIBS:
         build([name])
-        cdll = ctypes.CDLL(str(_lib_path(name)))
-        sym, argtypes = _SIGNATURES[name]
-        fn = getattr(cdll, sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LIBS[name] = cdll
+        _LIBS[name] = load(name, _lib_path(name))
     return _LIBS[name]
 
 
@@ -135,6 +155,27 @@ def check(err: int, what: str) -> None:
     """Raise when a launch returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd would record a graph through these tensors: grad
+    mode is on and one of them requires grad."""
+    import torch
+
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
+    )
+
+
+def forbid_grad(what: str, *tensors) -> None:
+    """Raise before launching a kernel that has no backward (as in the JAX
+    package, which has none for it) on inputs autograd would differentiate:
+    its output would carry no ``grad_fn`` and cut the gradient silently."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{what}: this kernel has no backward; call it under torch.no_grad() "
+            "or on inputs that do not require grad"
+        )
 
 
 def stream_handle(device) -> int:

@@ -94,6 +94,7 @@ def int4_matmul(x: torch.Tensor, qp: torch.Tensor) -> torch.Tensor:
         return int4_matmul_ref(x, qp)
     if x.device.type != "cuda":
         raise ValueError(f"int4_matmul: unsupported device {x.device}")
+    _kernels.forbid_grad("int4_matmul", x, qp)
     out = launch_int4_matmul(x, qp)
     launches += 1
     return out

@@ -102,6 +102,7 @@ def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     global launches
     if _check_device("int8_mm", a):
         return int8_mm_ref(a, b)
+    _kernels.forbid_grad("int8_mm", a, b)
     out = launch_int8_mm(a, b)
     launches += 1
     return out

@@ -284,6 +284,7 @@ def carry_paged_attention_multi(
         return carry_paged_attention_multi_ref(
             q, k_pages, v_pages, page_table, lengths, layer, window=window
         )
+    _kernels.forbid_grad("carry_paged_attention_multi", q, k_pages, v_pages)
     l = int(layer)
     out = launch_paged_attn(q, k_pages[l], v_pages[l], page_table, lengths, window=window)
     launches_bf16 += 1
@@ -324,6 +325,7 @@ def carry_paged_attention_multi_q8(
             q, k_pages, v_pages, k_scale, v_scale, page_table, lengths, layer,
             window=window,
         )
+    _kernels.forbid_grad("carry_paged_attention_multi_q8", q, k_scale, v_scale)
     l = int(layer)
     out = launch_paged_attn(
         q, k_pages[l], v_pages[l], page_table, lengths, window=window,
@@ -356,6 +358,7 @@ def paged_attention(
     global launches_k8
     if not _on_cuda(q):
         return paged_attention_ref(q, k_pages, v_pages, page_table, lengths)
+    _kernels.forbid_grad("paged_attention", q, k_pages, v_pages)
     out = launch_paged_attn(q[:, None], k_pages, v_pages, page_table, lengths, window=1)
     launches_k8 += 1
     return out[:, 0]

@@ -104,6 +104,7 @@ def fused_block_attention(
         )
     if x_ln.device.type != "cuda":
         raise ValueError(f"fused_block_attention: unsupported device {x_ln.device}")
+    _kernels.forbid_grad("fused_block_attention", x_ln, wqkv_t, bqkv, wo_t)
     B, T, Dm = x_ln.shape
     dh = Dm // n_heads
     for name, x in (("x_ln", x_ln), ("wqkv_t", wqkv_t), ("wo_t", wo_t)):
