@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``vcoder_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py                  # every phase (1-4, 6, 7, 8, 5)
+    python3 chip_smoke.py                  # every phase (1-4, 6, 7, 8, 9, 5)
     python3 chip_smoke.py --profile        # also torch.profiler: two B=1 requests,
                                            # the paged engine's decode step at B=8,
-                                           # in bf16 and with int4/int8 weights, and
-                                           # one training step
+                                           # in bf16, with int4/int8 weights and with
+                                           # the fused append, and one training step
     python3 chip_smoke.py --faults         # only: K6's gates against faulty builds
                                            # of flash_bwd.cu (K6_FAULTS)
 
@@ -26,7 +26,13 @@ Phases, in order; any failure exits non-zero:
    batch (B=4, T=2048, H=KH=32, right-padded, the output gradient 0 on pad
    rows) and in a GQA case with key-mask holes, a row that sees no key and
    T < S, gated on relative L2 per gradient and per 64-row tile and on exact
-   zeros where the plain gradient is 0. Kernels and yardsticks are timed by
+   zeros where the plain gradient is 0; the fused append + attend (K7) in
+   five cases (bf16 and int8 pools at windows 1 and 4 at the decode shape,
+   and a GQA case with an inactive row and a window across a page), gated on
+   the active rows' outputs, every pool page but the scratch page byte-equal
+   to the plain version's and the scratch page holding the inactive rows'
+   writes, timed beside the port's unfused route; the fused ViT MLP (K9) at
+   B=3, T=577, Dm=1024, I=4096. Kernels and yardsticks are timed by
    CUDA-graph replay (SDPA's backward eagerly), the plain versions eagerly.
 4. Main path at full width: VCoder-DS-7B with seeded random bf16 weights
    (built once, shared with phase 6) serves 3 requests (RGB + seg + depth,
@@ -60,10 +66,22 @@ Phases, in order; any failure exits non-zero:
    calls, 64 flash forward launches (32 + 32 recomputed) and 23 ViT-block
    launches, and none of a kernel without a backward; the kernel route's
    trainable gradients within a bound of the plain route's on one sample.
+9. Fused kernels and multi-LoRA at full width, over the phase-4 weights:
+   engine F is engine A's traffic with ``FUSED_APPEND`` on (gated on 32 K7
+   launches per decode step, no K8, and A's first tokens); engine G serves
+   int8 pools with ``speculative=4``, ``FUSED_APPEND``, ``FUSE_MLP_DEFAULT``
+   and two seeded adapters (rows 3 x ``a``, 3 x ``b``, 2 x none), beside G0,
+   the same without adapters (gated on 32 K7 per verify step and no K4, 23
+   K9 per admission, G's no-adapter rows equal to G0's, and each adapter
+   changing a row's tokens); then phase 4's requests through ``generate``
+   with ``FUSE_MLP_DEFAULT`` on (23 K9 per tower pass, prefill logits within
+   ``MLP_ROUTE_REL_L2`` of the unfused MLP's). Both flags are restored.
 5. The checkpoint entry point: ``save_pretrained`` writes a small DS
    checkpoint, ``load_pretrained_model`` loads it on the card as bf16, with
-   ``load_4bit`` and with ``load_8bit``, and ``generate`` runs on each;
-   their prefill logits through the kernels agree with the plain route.
+   ``load_4bit`` and with ``load_8bit``, and as the base of a PEFT LoRA
+   directory and of an adapter-only directory (``model_base``), and
+   ``generate`` runs on each; their prefill logits through the kernels agree
+   with the plain route.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -75,6 +93,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -745,6 +764,240 @@ def phase_paged_kernels(report: list) -> None:
     pa.reset_launches()  # comparison launches do not count
 
 
+def _fused_case(name, *, B, window, H, KH, lengths, active=None, quant=False, seed=0):
+    """Inputs for one fused append + attend comparison: the pools, table and
+    query of :func:`_paged_case` (layer 17 of 32, pages of 64; ``lengths``
+    include the window for active rows only), plus the window's new K/V
+    (int8 values and f32 scales for int8 pools), ``positions = lengths -
+    window * active`` and the active mask."""
+    import torch
+
+    case = _paged_case(name, B=B, window=window, H=H, KH=KH, lengths=lengths, quant=quant,
+                       seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 50)
+    act = np.ones(B, bool) if active is None else np.asarray(active)
+    shape = (B, window, KH, 128)
+    if quant:
+        nk, nv = (torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+                  for _ in range(2))
+        nks, nvs = (torch.rand(shape[:-1], generator=gen, device="cuda") * (2.0 / 127) + 0.5 / 127
+                    for _ in range(2))
+    else:
+        nk, nv = (torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+                  for _ in range(2))
+        nks = nvs = None
+    pos = case["np_lengths"] - window * act.astype(np.int32)
+    case.update(nk=nk, nv=nv, nks=nks, nvs=nvs, np_active=act, np_pos=pos,
+                active=torch.from_numpy(act).cuda(), positions=torch.from_numpy(pos).cuda())
+    return case
+
+
+def _pool_list(case, layer_slice=None):
+    pools = [case[x] for x in ("kp", "vp", "ks", "vs") if case[x] is not None]
+    return pools if layer_slice is None else [p[layer_slice] for p in pools]
+
+
+def check_fused(case: dict, report: list) -> None:
+    """K7 against its plain version on one case, gated on the active rows'
+    outputs, every pool page but the scratch page byte-equal to the plain
+    version's, and the scratch page holding the inactive rows' writes (or
+    unchanged with none); timed beside the port's unfused route (the append
+    writers, then K8 / K3 / K4) and SDPA over pre-gathered K/V."""
+    import torch
+    import torch.nn.functional as F
+
+    from vcoder_tpu_torch.ops import paged_attention as pa
+
+    q, table, lengths, layer, window = (case[x] for x in ("q", "table", "lengths", "layer",
+                                                          "window"))
+    nk, nv, nks, nvs, pos, act = (case[x] for x in ("nk", "nv", "nks", "nvs", "positions",
+                                                    "active"))
+    quant = case["quant"]
+    B, k, H, D = q.shape
+    n_pages = case["kp"].shape[1]
+    KH, page = case["kp"].shape[2], case["page"]
+
+    def fused(pools, l):
+        kw = dict(window=window)
+        if quant:
+            kw.update(k_scale=pools[2], v_scale=pools[3], new_ks=nks, new_vs=nvs)
+        return pa.carry_paged_attention_fused(q, nk, nv, pools[0], pools[1], table, lengths, pos,
+                                              act, l, **kw)
+
+    before = [p.clone() for p in _pool_list(case, slice(layer, layer + 1))]
+    plain_pools = [p.clone() for p in before]
+    out = fused(_pool_list(case), layer)
+    kw = dict(window=window)
+    if quant:
+        kw.update(k_scale=plain_pools[2], v_scale=plain_pools[3], new_ks=nks, new_vs=nvs)
+    ref = pa.carry_paged_attention_fused_ref(q, nk, nv, plain_pools[0], plain_pools[1], table,
+                                             lengths, pos, act, 0, **kw)
+    torch.cuda.synchronize()
+    a = case["np_active"]
+    err = (out.float() - ref.float())[torch.from_numpy(a).cuda()].abs().max().item()
+    tol = 2e-2  # as the paged kernel's cases: bf16 output, f32 sums in another order
+    got = _pool_list(case, slice(layer, layer + 1))
+    pages_equal = all(torch.equal(g[:, :-1], p[:, :-1]) for g, p in zip(got, plain_pools))
+    scratch_ok = True
+    srcs = [nk, nv] + ([nks, nvs] if quant else [])
+    for b in np.nonzero(~a)[0]:
+        for t in range(window):
+            off = (int(case["np_pos"][b]) + t) % page
+            for g, src in zip(got, srcs):
+                scratch_ok &= torch.equal(g[0, n_pages - 1, :, off], src[b, t])
+    if a.all():
+        scratch_ok = all(torch.equal(g[:, -1], p[:, -1]) for g, p in zip(got, before))
+    ok = (err <= tol and pages_equal and scratch_ok
+          and torch.isfinite(out.float()[torch.from_numpy(a).cuda()]).all().item())
+    log(f"kernel {case['name']}: max_abs_err {err:.3e} on active rows (tol {tol}), pool pages "
+        f"byte-equal but the scratch page {pages_equal}, scratch page holds the inactive rows' "
+        f"writes {scratch_ok} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{case['name']}: fused kernel disagrees with its plain version")
+    del before, plain_pools, got
+
+    pools = _pool_list(case)
+    ms = graph_ms([lambda: fused(pools, layer)] * 5)
+    plain_pools = [p.clone() for p in _pool_list(case, slice(layer, layer + 1))]
+    plain_ms = cuda_ms(lambda: pa.carry_paged_attention_fused_ref(
+        q, nk, nv, plain_pools[0], plain_pools[1], table, lengths, pos, act, 0,
+        **({**kw, "k_scale": plain_pools[2], "v_scale": plain_pools[3]} if quant else kw)),
+        iters=3, warmup=1)
+    del plain_pools
+    pos2d = pos.long()[:, None] + torch.arange(window, device="cuda")[None, :]
+
+    def unfused():
+        pa.append_tokens_layer(pools[0], layer, nk, pos2d, table, act)
+        pa.append_tokens_layer(pools[1], layer, nv, pos2d, table, act)
+        if quant:
+            pa.append_token_scales_layer(pools[2], layer, nks, pos2d, table, act)
+            pa.append_token_scales_layer(pools[3], layer, nvs, pos2d, table, act)
+            return pa.carry_paged_attention_multi_q8(q, *pools, table, lengths, layer,
+                                                     window=window)
+        if window == 1:
+            return pa.carry_paged_attention(q[:, 0], pools[0], pools[1], table, lengths, layer)
+        return pa.carry_paged_attention_multi(q, pools[0], pools[1], table, lengths, layer,
+                                              window=window)
+
+    unfused_ms = graph_ms([unfused] * 5)
+    qt, kd, vd, mask = _paged_dense(case)
+    lib_ms = graph_ms([lambda: F.scaled_dot_product_attention(
+        qt, kd, vd, attn_mask=mask, enable_gqa=(H != KH))] * 5)
+    del kd, vd
+    # Work these inputs need: the K/V (and scales) of each row's old tokens
+    # read once, the window's K/V read from the operands and written to the
+    # pool once, q and out once; each query column against its old tokens
+    # and, for an active row, the window causally.
+    elem = 1 if quant else 2
+    old = case["np_lengths"] - window * a.astype(np.int64)
+    row_bytes = KH * (D * elem + (4 if quant else 0))
+    nbytes = (2 * int(old.sum()) * row_bytes + 2 * 2 * int(a.sum()) * window * row_bytes
+              + 2 * B * k * H * D * 2 + table.numel() * 4 + 3 * B * 4)
+    pairs = float(H * (old * window + a * window * (window + 1) // 2).sum())
+    b_ms, b_by = bound(4.0 * D * pairs, nbytes)
+    log(f"  {case['name']}: kernel {ms:.4f} ms  unfused route (append writers + paged kernel) "
+        f"{unfused_ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa over pre-gathered dense K/V "
+        f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB)")
+    if case["report"]:
+        report.append(dict(name="paged_attn_fused", route="cuda",
+                           source="vcoder_tpu_torch/csrc/paged_attn.cu",
+                           replaces="vcoder_tpu/ops/paged_attention.py:1263", launches=0,
+                           max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=lib_ms, unfused_ms=unfused_ms,
+                           status="ok"))
+
+
+def phase_fused_kernels(report: list) -> None:
+    """K7 against its plain version at the engine's shapes: bf16 and int8
+    pools at windows 1 and 4 (B=8, H=KH=32, lengths 1201-1233 with the
+    window), and a GQA case (32 query heads over 8 KV heads) with an inactive
+    row and a window across a page boundary."""
+    import torch
+
+    from vcoder_tpu_torch.ops import paged_attention as pa
+
+    decode_lengths = np.linspace(1201, 1233, 8).astype(np.int32)
+    cases = [
+        dict(name="fused bf16 decode B=8 w=1 L=32@17 H=KH=32 page 64 len 1201-1233", B=8,
+             window=1, H=32, KH=32, lengths=decode_lengths, seed=11),
+        dict(name="fused bf16 verify B=8 w=4", B=8, window=4, H=32, KH=32,
+             lengths=decode_lengths + 3, seed=12),
+        dict(name="fused int8 decode B=8 w=1", B=8, window=1, H=32, KH=32,
+             lengths=decode_lengths, quant=True, seed=13),
+        dict(name="fused int8 verify B=8 w=4", B=8, window=4, H=32, KH=32,
+             lengths=decode_lengths + 3, quant=True, seed=14),
+        dict(name="fused bf16 GQA 32q/8kv w=4, an inactive row, a window across a page", B=4,
+             window=4, H=32, KH=8, lengths=[66, 130, 1201, 37],
+             active=[True, True, True, False], seed=15),
+    ]
+    for i, kw in enumerate(cases):
+        case = _fused_case(**kw)
+        case["report"] = i == 0
+        check_fused(case, report)
+        del case
+        torch.cuda.empty_cache()
+    pa.reset_launches()  # comparison launches do not count
+
+
+def check_vit_mlp(report: list) -> None:
+    """K9 against its plain version at the tower's shape (B=3, T=577,
+    Dm=1024, I=4096, bf16, non-zero LN parameters and biases)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vcoder_tpu_torch.ops import vit_attention as va
+
+    B, T, Dm, I = 3, 577, 1024, 4096
+    eps = 1e-5
+    rng = np.random.RandomState(4)
+
+    def randn(*shape, s=1.0, c=0.0):
+        return torch.from_numpy((c + rng.randn(*shape) * s).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+
+    x = randn(B, T, Dm)
+    ln_s, ln_b = randn(Dm, s=0.1, c=1.0), randn(Dm, s=0.1)
+    fc1, b1 = randn(Dm, I, s=0.03), randn(I, s=0.1)
+    fc2, b2 = randn(I, Dm, s=0.03), randn(Dm, s=0.1)
+    args = (x, ln_s, ln_b, fc1, b1, fc2, b2)
+    y = va.fused_block_mlp(*args, eps=eps)
+    ref = va.fused_block_mlp_ref(*args, eps=eps)
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    # Both round the normalized row, the GELU output and the result to bf16
+    # at the same places; f32 sums in another order may move an
+    # intermediate across a rounding boundary.
+    tol = 2e-2 * max(1.0, scale)
+    ok = err <= tol and torch.isfinite(y.float()).all().item()
+    log(f"kernel vit_mlp: max_abs_err {err:.3e} (tol {tol:.3e}, max|ref| {scale:.3f}) "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("vit_mlp: kernels disagree with the plain version")
+    ms = graph_ms([lambda: va.fused_block_mlp(*args, eps=eps)] * 5)
+    plain_ms = cuda_ms(lambda: va.fused_block_mlp_ref(*args, eps=eps), iters=3, warmup=1)
+    M = B * T
+
+    def library():
+        h = F.layer_norm(x, (Dm,), ln_s, ln_b, eps).view(M, Dm)
+        t = torch.addmm(b1, h, fc1)
+        t = t * torch.sigmoid(1.702 * t)
+        return torch.addmm(b2, t, fc2).view(B, T, Dm) + x
+
+    lib_ms = graph_ms([library] * 5)
+    va.launches_mlp = 0  # comparison launches do not count
+    flops = 4.0 * M * Dm * I
+    nbytes = 2 * M * Dm * 2 + 2 * Dm * I * 2 + (3 * Dm + I) * 2
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"  vit_mlp: kernels {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)  plain {plain_ms:.4f} ms"
+        f"  layer_norm + addmm + quick-GELU + addmm + residual {lib_ms:.4f} ms  bound "
+        f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    report.append(dict(name="vit_mlp", route="cuda", source="vcoder_tpu_torch/csrc/vit_mlp.cu",
+                       replaces="vcoder_tpu/ops/vit_attention.py:154", launches=0,
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_ms, status="ok"))
+
+
 def _copies(t, nbytes: int) -> list:
     """``t`` and enough clones that together they exceed the 50 MB L2
     twice: a decode step reads each weight once, from HBM."""
@@ -919,6 +1172,7 @@ def phase_kernels(report: list) -> None:
     check_flash(_flash_case("flash_fwd d64 bidirectional B=3 T=S=577 H=16",
                             3, 577, 577, 16, 16, 64, causal=False, seed=3), report)
     check_vit_block(report)
+    check_vit_mlp(report)
 
 
 def _images(rng, h, w):
@@ -1011,7 +1265,8 @@ def phase_main_path(cfg, params, model, tok) -> dict:
             f"{max_new} tokens in {total * 1e3:.1f} ms, decode {decode_tps:.1f} tok/s, "
             f"first tokens {seqs[0, :8].tolist()}")
     n_flash, n_vit = fa.launches, va.launches
-    log(f"  TTFT p50 {np.median([r['ttft_ms'] for r in reqs]):.1f} ms, decode p50 "
+    ttft_p50 = float(np.median([r["ttft_ms"] for r in reqs]))
+    log(f"  TTFT p50 {ttft_p50:.1f} ms, decode p50 "
         f"{np.median([r['decode_tok_s'] for r in reqs]):.1f} tok/s (B=1, host clock)")
     log(f"  launches over {prefills} prefills: flash_fwd {n_flash} ({n_flash / prefills:g} per "
         f"prefill), vit_block {n_vit} ({n_vit / prefills:g} per tower pass)")
@@ -1029,7 +1284,7 @@ def phase_main_path(cfg, params, model, tok) -> dict:
         f"logits rel L2 {rel:.3e}, argmax {int(lk.argmax())} vs {int(lp.argmax())}")
     if "--profile" in sys.argv:
         profile_requests(model, tok, _images(np.random.RandomState(8), 480, 640))
-    return {"flash_fwd": n_flash, "vit_block": n_vit}
+    return {"flash_fwd": n_flash, "vit_block": n_vit, "ttft_p50_ms": ttft_p50}
 
 
 ENGINE_SIZES = [(480, 640), (720, 540), (375, 500), (600, 800), (512, 384), (333, 444),
@@ -1111,15 +1366,15 @@ def _run_engine(label, cfg, params, turns, *, max_new, **kw):
         for turn in turns:
             prep_turn = turn(results[-1]) if callable(turn) else turn
             n_steps0 = len(eng.timer.samples.get("decode_step", []))
-            fa.launches = va.launches = i4.launches = 0
+            fa.launches = va.launches = va.launches_mlp = i4.launches = 0
             pa.reset_launches()
             i8.reset_launches()
             res, wall = _drive(worker, prep_turn)
             torch.cuda.synchronize()
             steps = eng.timer.samples.get("decode_step", [])[n_steps0:]
-            counts.append(dict(flash=fa.launches, vit=va.launches, bf16=pa.launches_bf16,
-                               q8=pa.launches_q8, k8=pa.launches_k8,
-                               by_window=dict(pa.launches_by_window),
+            counts.append(dict(flash=fa.launches, vit=va.launches, mlp=va.launches_mlp,
+                               bf16=pa.launches_bf16, q8=pa.launches_q8, k8=pa.launches_k8,
+                               fused=pa.launches_fused, by_window=dict(pa.launches_by_window),
                                int4=i4.launches, int8=i8.launches,
                                int8_scaled=i8.launches_scaled,
                                decode_dispatches=len(steps)))
@@ -1131,11 +1386,13 @@ def _run_engine(label, cfg, params, turns, *, max_new, **kw):
         worker.shutdown()
         eng.close()
         torch.cuda.empty_cache()
+    ttfts = []
     for t, (res, wall, c, (dec_s, step_p50)) in enumerate(zip(results, walls, counts, decode)):
         bad = [r for r in res if r["err"] is not None or len(r["tokens"]) != max_new]
         if bad:
             raise SystemExit(f"engine {label}: requests did not complete: {bad[:2]}")
         ttft = np.median([r["ttft_s"] for r in res]) * 1e3
+        ttfts.append(ttft)
         n_tok = sum(len(r["tokens"]) - 1 for r in res)
         log(f"  engine {label} turn {t + 1}: {len(res)} requests x {max_new} tokens in "
             f"{wall:.2f} s; TTFT p50 {ttft:.1f} ms; aggregate decode {n_tok / dec_s:.1f} tok/s "
@@ -1144,7 +1401,8 @@ def _run_engine(label, cfg, params, turns, *, max_new, **kw):
             f"launches {json.dumps(c)}")
     log(f"  engine {label}: pools {pool_gib:.2f} GiB, prefix {json.dumps(stats.get('prefix_cache'))}, "
         f"preemptions {stats.get('preemptions')}")
-    return results, dict(counts=counts, prefix=stats.get("prefix_cache"))
+    return results, dict(counts=counts, prefix=stats.get("prefix_cache"), ttft_p50_ms=ttfts,
+                         step_p50_ms=[d[1] for d in decode])
 
 
 def phase_engines(cfg, params, model, tok) -> dict:
@@ -1212,7 +1470,7 @@ def phase_engines(cfg, params, model, tok) -> dict:
     for c in [ca, cb] + cc:
         for key in ("flash", "vit", "bf16", "q8", "k8"):
             totals[key] = totals.get(key, 0) + c[key]
-    return totals
+    return totals, dict(preps=preps, results=res_a, stats=st_a)
 
 
 @contextlib.contextmanager
@@ -1230,8 +1488,9 @@ def plain_quant_route():
     from vcoder_tpu_torch.ops import vit_attention as va
 
     def counts():
-        return (fa.launches, va.launches, i4.launches, i8.launches, i8.launches_scaled,
-                pa.launches_bf16, pa.launches_q8, pa.launches_k8)
+        return (fa.launches, va.launches, va.launches_mlp, i4.launches, i8.launches,
+                i8.launches_scaled, pa.launches_bf16, pa.launches_q8, pa.launches_k8,
+                pa.launches_fused)
 
     before = counts()
     saved = i4.int4_matmul, i8.int8_mm_scaled
@@ -1244,9 +1503,10 @@ def plain_quant_route():
         raise SystemExit(f"plain route launched kernels: counts {before} -> {counts()}")
 
 
-def _prefill_routes(params, cfg, tok, pictures):
+def _prefill_routes(params, cfg, tok, pictures, plain: bool = True):
     """Last-token prefill logits of one DS request through the kernels and
-    through the plain route (plain attention, plain quantized products)."""
+    (with ``plain``) through the plain route (plain attention, plain
+    quantized products)."""
     import torch
 
     from vcoder_tpu_torch.mm_tokens import tokenizer_depth_seg_token
@@ -1262,9 +1522,11 @@ def _prefill_routes(params, cfg, tok, pictures):
     px = [process_images([a], dtype=dtype, device="cuda") for a in pictures]
     with torch.no_grad():
         lk, _ = model_mod.prefill(params, cfg, arrays, *px, use_vcoder_emb=True)
-        with plain_quant_route():
-            lp, _ = model_mod.prefill(params, cfg, arrays, *px, use_vcoder_emb=True,
-                                      attn_impl="xla")
+        lp = None
+        if plain:
+            with plain_quant_route():
+                lp, _ = model_mod.prefill(params, cfg, arrays, *px, use_vcoder_emb=True,
+                                          attn_impl="xla")
     torch.cuda.synchronize()
     return lk, lp, plan
 
@@ -1638,6 +1900,156 @@ def phase_training(cfg, params, ds, layout) -> dict:
     return dict(counts=counts, step_ms_p50=ms_p50, tokens_s=tok_s, peak_gib=peak_gib)
 
 
+LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+
+# The K9 route's prefill logits against the unfused MLP's on one request:
+# the two round at other places (after the GELU, after fc1), and through 23
+# blocks and 32 layers of random bf16 weights a difference of that kind
+# reads ~0.05 relative L2 (the kernel against the plain route, PERF.md).
+MLP_ROUTE_REL_L2 = 0.15
+
+
+def lora_dims(t) -> dict:
+    """(in, out) of each LoRA target of a text config."""
+    q, kv = t.num_heads * t.head_dim, t.num_kv_heads * t.head_dim
+    return dict(q_proj=(t.hidden_size, q), k_proj=(t.hidden_size, kv),
+                v_proj=(t.hidden_size, kv), o_proj=(q, t.hidden_size),
+                gate_proj=(t.hidden_size, t.intermediate_size),
+                up_proj=(t.hidden_size, t.intermediate_size),
+                down_proj=(t.intermediate_size, t.hidden_size))
+
+
+def make_adapters(cfg, seed: int = 21) -> dict:
+    """Two seeded adapters over q/k/v/o/gate/up/down of every decoder layer,
+    ``a`` of rank 16 and ``b`` of rank 8, bf16 on the card: A ~ N(0, 1/in),
+    B ~ N(0, 0.02^2), alpha = 2 r, so each adds a delta of ~10% of the base
+    weight's size and moves greedy tokens."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t = cfg.text
+    dims = lora_dims(t)
+    out = {}
+    for name, rank in (("a", 16), ("b", 8)):
+        tree = {}
+        for proj in LORA_TARGETS:
+            din, dout = dims[proj]
+            a = torch.randn((t.num_layers, din, rank), generator=gen, device="cuda",
+                            dtype=torch.bfloat16) * din**-0.5
+            b = torch.randn((t.num_layers, rank, dout), generator=gen, device="cuda",
+                            dtype=torch.bfloat16) * 0.02
+            tree[f"lm/layers/{proj}"] = (a, b, 2.0)
+        out[name] = tree
+    return out
+
+
+def phase_fused_lora(cfg, params, model, tok, engine_a, main_ttft_ms) -> dict:
+    """Phase 9, full width, the phase-4 weights: engine F is engine A's
+    traffic with ``FUSED_APPEND`` on (K7 at window 1 in every layer of every
+    decode step; the A/B against phase 6's engine A); engine G serves int8
+    pools, ``speculative=4``, ``FUSED_APPEND`` and ``FUSE_MLP_DEFAULT`` on
+    and two seeded adapters, rows 3 x ``a``, 3 x ``b``, 2 x none, beside
+    engine G0, the same configuration and requests without adapters; then
+    phase 4's 3 requests through ``generate`` with ``FUSE_MLP_DEFAULT`` on
+    (the tower A/B). Both flags are restored after. Returns launch totals."""
+    import torch
+
+    from vcoder_tpu_torch.models import clip as clip_mod
+    from vcoder_tpu_torch.ops import flash_attention as fa
+    from vcoder_tpu_torch.ops import paged_attention as pa
+    from vcoder_tpu_torch.ops import vit_attention as va
+
+    max_new = 32
+    preps = engine_a["preps"]
+    n = len(preps)
+    totals = dict(fused=0, mlp=0)
+    try:
+        pa.FUSED_APPEND = True
+        (res_f,), st_f = _run_engine("F (bf16 pools, FUSED_APPEND)", cfg, params, [preps],
+                                     max_new=max_new)
+        cf = st_f["counts"][0]
+        d = cf["decode_dispatches"]
+        if cf["fused"] != 32 * d or cf["by_window"] != {1: 32 * d} or cf["k8"] or cf["bf16"] \
+                or cf["q8"] or cf["flash"] != 32 * n or cf["vit"] != 23 * n or cf["mlp"]:
+            raise SystemExit(f"engine F: launches {cf} != 32 K7 per decode step, no K8/K3/K4")
+        first_a = [r["tokens"][0] for r in engine_a["results"]]
+        first_f = [r["tokens"][0] for r in res_f]
+        if first_f != first_a:
+            raise SystemExit(f"engines F and A disagree on first tokens: {first_f} vs {first_a}")
+        agree = sum(int(x == y) for ra, rf in zip(engine_a["results"], res_f)
+                    for x, y in zip(ra["tokens"][1:], rf["tokens"][1:]))
+        sa = engine_a["stats"]
+        log(f"  A/B fused append: F vs A decode tokens {agree}/{n * (max_new - 1)} agree, first "
+            f"tokens equal; step wall p50 {st_f['step_p50_ms'][0]:.2f} ms (A "
+            f"{sa['step_p50_ms'][0]:.2f} ms), TTFT p50 {st_f['ttft_p50_ms'][0]:.1f} ms (A "
+            f"{sa['ttft_p50_ms'][0]:.1f} ms), launches per step: K7 32 (A: K8 32 + 64 "
+            f"append scatters)")
+        totals["fused"] += cf["fused"]
+        if "--profile" in sys.argv:
+            profile_engine_decode(cfg, preps, [("engine_F_decode_step", params, {})],
+                                  tag="profile_engine_fused")
+
+        clip_mod.FUSE_MLP_DEFAULT = True
+        lora = ["a"] * 3 + ["b"] * 3 + [None] * 2
+        preps_g = [dataclasses.replace(p, lora=name) for p, name in zip(preps, lora)]
+        kw = dict(max_new=max_new, kv_quant=True, speculative=4)
+        (res_g,), st_g = _run_engine("G (int8 pools, speculative 4, FUSED_APPEND, FUSE_MLP, "
+                                     "adapters a/b)", cfg, params, [preps_g],
+                                     lora_adapters=make_adapters(cfg), **kw)
+        (res_0,), st_0 = _run_engine("G0 (G without adapters)", cfg, params, [preps], **kw)
+        for label, c in (("G", st_g["counts"][0]), ("G0", st_0["counts"][0])):
+            d = c["decode_dispatches"]
+            if (c["fused"] != 32 * d or c["by_window"] != {4: 32 * d} or c["q8"] or c["bf16"]
+                    or c["k8"] or c["mlp"] != 23 * n or c["vit"] != 23 * n
+                    or c["flash"] != 32 * n):
+                raise SystemExit(f"engine {label}: launches {c} != 32 K7 per verify step (no K4) "
+                                 f"and 23 K9 per admission")
+            totals["fused"] += c["fused"]
+            totals["mlp"] += c["mlp"]
+        toks_g = [r["tokens"] for r in res_g]
+        toks_0 = [r["tokens"] for r in res_0]
+        moved = {name: sum(int(toks_g[i] != toks_0[i]) for i in range(n) if lora[i] == name)
+                 for name in ("a", "b")}
+        same_none = all(toks_g[i] == toks_0[i] for i in range(n) if lora[i] is None)
+        log(f"  G vs G0: no-adapter rows equal {same_none}; rows whose tokens the adapter "
+            f"changed {json.dumps(moved)} of 3 each")
+        if not same_none or not all(moved.values()):
+            raise SystemExit("engine G: no-adapter rows differ from G0, or an adapter changed "
+                             "no row's tokens")
+
+        # The B=1 path with the MLP kernel: phase 4's requests (same draws).
+        rng = np.random.RandomState(0)
+        _images(rng, 300, 420)
+        fa.launches = va.launches = va.launches_mlp = 0
+        ttfts = []
+        for h, w in [(480, 640), (720, 540), (375, 500)]:
+            pictures = _images(rng, h, w)
+            t0 = time.perf_counter()
+            _, res = _serve(model, tok, pictures, 1)
+            ttfts.append((time.perf_counter() - t0) * 1e3)
+        c = dict(flash=fa.launches, vit=va.launches, mlp=va.launches_mlp)
+        if c != dict(flash=32 * 3, vit=23 * 3, mlp=23 * 3):
+            raise SystemExit(f"B=1 with FUSE_MLP: launches {c} != 32/23/23 per request")
+        totals["mlp"] += c["mlp"]
+        pictures = _images(np.random.RandomState(7), 480, 640)
+        lk_on, _, _ = _prefill_routes(params, cfg, tok, pictures, plain=False)
+        clip_mod.FUSE_MLP_DEFAULT = False
+        lk_off, _, _ = _prefill_routes(params, cfg, tok, pictures, plain=False)
+        rel = ((lk_on - lk_off).norm() / lk_off.norm()).item()
+        ok = rel <= MLP_ROUTE_REL_L2 and bool(torch.isfinite(lk_on).all())
+        log(f"  A/B fused MLP, B=1: TTFT p50 {np.median(ttfts):.1f} ms (phase 4, unfused: "
+            f"{main_ttft_ms:.1f} ms); launches {json.dumps(c)}; prefill logits K9 route vs "
+            f"unfused MLP rel L2 {rel:.3e} (bound {MLP_ROUTE_REL_L2}), argmax "
+            f"{int(lk_on.argmax())} vs {int(lk_off.argmax())} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("B=1 with FUSE_MLP: prefill logits too far from the unfused MLP's")
+    finally:
+        pa.FUSED_APPEND = False
+        clip_mod.FUSE_MLP_DEFAULT = False
+    torch.cuda.empty_cache()
+    return totals
+
+
 def _kernel_class(name: str) -> str:
     if "flash_fwd" in name:
         return "flash_fwd (port)"
@@ -1645,6 +2057,8 @@ def _kernel_class(name: str) -> str:
         return "flash_bwd (port)"
     if "gemm_bias" in name:
         return "gemm_bias (port)"
+    if "ln_kernel" in name or "gemm_kernel" in name:
+        return "vit_mlp (port)"
     if "paged_attn" in name:
         return "paged_attn (port)"
     if "int4_matmul" in name or "int4_split_sum" in name:
@@ -1734,11 +2148,55 @@ def _flat(tree, prefix=""):
     return {prefix: tree}
 
 
+def write_over_base_dirs(tmp: str, base: str, cfg, params, tok) -> tuple:
+    """Next to the checkpoint ``base``: a PEFT LoRA directory (seeded rank-4
+    adapters on q/k/v/o/gate/up/down, ``adapter_config.json``, a
+    ``non_lora_trainables.bin`` mm-projector in the reference's prefixed
+    keys) and an adapter-only directory (projector weights under bare,
+    'model.' and 'base_model.model.' prefixes). Returns their paths."""
+    import shutil
+
+    import torch
+
+    from vcoder_tpu_torch.checkpoint import write_safetensors
+
+    rng = np.random.RandomState(9)
+    f = lambda *s: torch.from_numpy((rng.randn(*s) * 0.05).astype(np.float32))  # noqa: E731
+    t = cfg.text
+    dims = lora_dims(t)
+    lora, adapter = f"{tmp}/vcoder_ds_llava-smoke-lora", f"{tmp}/vcoder_ds_llava-smoke-adapter"
+    state = {}
+    for i in range(t.num_layers):
+        for proj in LORA_TARGETS:
+            mod = "mlp" if proj in ("gate_proj", "up_proj", "down_proj") else "self_attn"
+            pre = f"base_model.model.model.layers.{i}.{mod}.{proj}"
+            din, dout = dims[proj]
+            state[f"{pre}.lora_A.weight"] = f(4, din)
+            state[f"{pre}.lora_B.weight"] = f(dout, 4)
+    mm0 = tuple(params["mm_projector"]["w"][0].shape)[::-1]  # HF [out, in]
+    seg0 = tuple(params["seg_projector"]["w"][0].shape)[::-1]
+    for d in (lora, adapter):
+        os.makedirs(d)
+        shutil.copy(os.path.join(base, "config.json"), d)
+        tok.save_pretrained(d)
+    write_safetensors(f"{lora}/adapter_model.safetensors", state)
+    with open(f"{lora}/adapter_config.json", "w") as fh:
+        json.dump({"r": 4, "lora_alpha": 8}, fh)
+    torch.save({"base_model.model.model.mm_projector.0.weight": f(*mm0)},
+               f"{lora}/non_lora_trainables.bin")
+    write_safetensors(f"{adapter}/mm_projector.safetensors", {
+        "model.mm_projector.0.weight": f(*mm0), "mm_projector.0.bias": f(mm0[0]),
+        "base_model.model.model.seg_mm_projector.0.weight": f(*seg0)})
+    return lora, adapter
+
+
 def phase_checkpoint() -> None:
     """The checkpoint entry point: a small DS checkpoint saved, then loaded
-    on the card three ways -- bf16, ``load_4bit`` and ``load_8bit`` -- and
-    served through ``generate``; each variant's prefill logits through the
-    kernels agree with the plain route."""
+    on the card five ways -- bf16, ``load_4bit``, ``load_8bit``, and as the
+    base of a PEFT LoRA directory (merged) and of an adapter-only directory
+    (overlaid), both through ``model_base`` -- and served through
+    ``generate``; each variant's prefill logits through the kernels agree
+    with the plain route."""
     import torch
 
     from vcoder_tpu_torch.builder import load_pretrained_model
@@ -1767,9 +2225,12 @@ def phase_checkpoint() -> None:
         path = f"{tmp}/vcoder_ds_llava-smoke"
         save_pretrained(path, params, cfg)
         tok.save_pretrained(path)
-        for label, kw in (("bf16", {}), ("load_4bit", {"load_4bit": True}),
-                          ("load_8bit", {"load_8bit": True})):
-            tokenizer, model, proc, seg_proc, depth_proc, ctx = load_pretrained_model(path, **kw)
+        lora, adapter = write_over_base_dirs(tmp, path, cfg, params, tok)
+        for label, kw, mpath in (("bf16", {}, path), ("load_4bit", {"load_4bit": True}, path),
+                                 ("load_8bit", {"load_8bit": True}, path),
+                                 ("peft_lora", {"model_base": path}, lora),
+                                 ("adapter_only", {"model_base": path}, adapter)):
+            tokenizer, model, proc, seg_proc, depth_proc, ctx = load_pretrained_model(mpath, **kw)
             if seg_proc is None or depth_proc is None or model.device.type != "cuda":
                 raise SystemExit("checkpoint: wrong processors or device")
             if not kw:
@@ -1778,6 +2239,16 @@ def phase_checkpoint() -> None:
                     torch.equal(saved[k].to(torch.bfloat16), loaded[k]) for k in saved
                 ):
                     raise SystemExit("checkpoint: loaded weights differ from the saved ones")
+            if "model_base" in kw:
+                # The adapters changed what they target and nothing else.
+                saved, loaded = _flat(params), _flat(model.params)
+                changed = {k for k in saved if not torch.equal(saved[k].to(torch.bfloat16),
+                                                               loaded[k])}
+                want = ({f"/lm/layers/{p}" for p in LORA_TARGETS} | {"/mm_projector/w/0"}
+                        if label == "peft_lora" else
+                        {"/mm_projector/w/0", "/mm_projector/b/0", "/seg_projector/w/0"})
+                if changed != want:
+                    raise SystemExit(f"checkpoint {label}: changed leaves {sorted(changed)}")
             px = [proc([a])["pixel_values"].to(torch.bfloat16) for a in (rgb, seg, depth)]
             ids = tokenizer_depth_seg_token(PROMPT, tokenizer)
             i4.launches = 0
@@ -1798,7 +2269,7 @@ def phase_checkpoint() -> None:
             ok = (res.sequences.shape == (1, 8) and torch.isfinite(lk).all().item()
                   and err <= tol and int(lk.argmax()) == int(lp.argmax())
                   and (n_int4 > 0) == (label == "load_4bit"))
-            log(f"checkpoint {label}: loaded {path.rsplit('/', 1)[-1]} via "
+            log(f"checkpoint {label}: loaded {mpath.rsplit('/', 1)[-1]} via "
                 f"load_pretrained_model, tokens {res.sequences[0].tolist()}, int4_matmul "
                 f"launches in generate {n_int4}, prefill logits kernel vs plain route "
                 f"max_abs_err {err:.3e} (tol {tol:.3e}) -> {'ok' if ok else 'FAIL'}")
@@ -1832,6 +2303,7 @@ def main() -> int:
     report: list = []
     phase_kernels(report)
     phase_paged_kernels(report)
+    phase_fused_kernels(report)
     phase_quant_kernels(report)
     from vcoder_tpu_torch.config import VCoderConfig
 
@@ -1845,13 +2317,16 @@ def main() -> int:
     main_counts = phase_main_path(cfg, params, model, tok)
     lap("main_path")
     log("engines (phase 6): VCoder-DS-7B, max_batch 8, max_len 2048, page 64, EOS off")
-    engine_counts = phase_engines(cfg, params, model, tok)
+    engine_counts, engine_a = phase_engines(cfg, params, model, tok)
     lap("engines")
     quant_counts = phase_quantized(cfg, params, tok)
     lap("quantized")
     log(f"training (phase 8): VCoder-DS-7B stage vcoder_ds, B=4, remat dots, {len(ds)} samples")
     train_counts = phase_training(cfg, params, ds, layout)["counts"]
     lap("training")
+    log("fused append, fused MLP and multi-LoRA (phase 9): VCoder-DS-7B, the phase-4 weights")
+    p9_counts = phase_fused_lora(cfg, params, model, tok, engine_a, main_counts["ttft_p50_ms"])
+    lap("fused_lora")
     del params, model
     torch.cuda.empty_cache()
     # Each entry's launches: the sum over the driven paths, each counted from
@@ -1868,6 +2343,8 @@ def main() -> int:
         "int4_matmul": quant_counts["int4"],
         "int8_mm": quant_counts["int8"],
         "int8_mm_scaled": quant_counts["int8_scaled"],
+        "paged_attn_fused": p9_counts["fused"],
+        "vit_mlp": p9_counts["mlp"],
     }
     for entry in report:
         entry["launches"] = launches[entry["name"]]

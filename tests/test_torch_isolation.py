@@ -131,7 +131,7 @@ def test_paged_engine_and_worker_raise_without_cuda(no_cuda):
         PagedServingEngine(cfg, meta, max_len=256, device="cpu")
     with pytest.raises(NotImplementedError):
         ServingEngine(cfg, params, device="cpu")  # the slot engine waits
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="no LoRA targets"):
         PagedServingEngine(cfg, params, max_len=256, device="cpu", lora_adapters={"a": {}})
     eng = PagedServingEngine(cfg, params, max_len=256, device="cpu")
     assert eng.k_pages.device.type == "cpu"
@@ -161,6 +161,36 @@ def test_paged_wrappers_take_the_plain_versions_on_cpu():
     assert not pa.launches_by_window and "paged_attn" not in _kernels._LIBS
     with pytest.raises(ValueError, match="unsupported device"):
         pa.paged_attention(q[:, 0].to("meta"), kp[0], vp[0], table, lengths)
+
+
+def test_fused_append_and_vit_mlp_take_the_plain_versions_on_cpu():
+    from vcoder_tpu_torch.ops import paged_attention as pa
+
+    pa.reset_launches()
+    va.launches_mlp = 0
+    rng = np.random.RandomState(1)
+    L, n, KH, page, D, B = 2, 6, 2, 8, 16, 2
+    pools = [torch.from_numpy(rng.randn(L, n, KH, page, D).astype(np.float32)) for _ in range(2)]
+    ref_pools = [p.clone() for p in pools]
+    q = torch.from_numpy(rng.randn(B, 1, 4, D).astype(np.float32))
+    nk, nv = (torch.from_numpy(rng.randn(B, 1, KH, D).astype(np.float32)) for _ in range(2))
+    args = (torch.tensor([[1, 2], [3, 4]], dtype=torch.int32), torch.tensor([12, 5]),
+            torch.tensor([11, 5]), torch.tensor([True, False]), 1)
+    out = pa.carry_paged_attention_fused(q, nk, nv, *pools, *args, window=1)
+    ref = pa.carry_paged_attention_fused_ref(q, nk, nv, *ref_pools, *args, window=1)
+    assert torch.equal(out, ref) and all(torch.equal(a, b) for a, b in zip(pools, ref_pools))
+    Dm, I = 8, 16
+    x = torch.from_numpy(rng.randn(1, 3, Dm).astype(np.float32))
+    w = [torch.ones(Dm), torch.zeros(Dm), torch.from_numpy(rng.randn(Dm, I).astype(np.float32)),
+         torch.zeros(I), torch.from_numpy(rng.randn(I, Dm).astype(np.float32)), torch.zeros(Dm)]
+    y = va.fused_block_mlp(x, *w, eps=1e-5, i_block=I)
+    assert torch.equal(y, va.fused_block_mlp_ref(x, *w, eps=1e-5, i_block=I))
+    assert pa.launches_fused == 0 and va.launches_mlp == 0 and not pa.launches_by_window
+    assert "paged_attn" not in _kernels._LIBS and "vit_mlp" not in _kernels._LIBS
+    with pytest.raises(ValueError, match="unsupported device"):
+        pa.carry_paged_attention_fused(q.to("meta"), nk, nv, *pools, *args, window=1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        va.fused_block_mlp(x.to("meta"), *w, eps=1e-5, i_block=I)
 
 
 def test_quantized_matmul_wrappers_take_the_plain_versions_on_cpu():

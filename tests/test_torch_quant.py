@@ -209,8 +209,12 @@ def test_plain_weights_promote_and_lora_raises():
     w = torch.ones(4, 3, dtype=torch.bfloat16)
     assert tq.qmatmul(x, w).dtype == torch.float32
 
-    class LoraWeight:
+    from vcoder_tpu_torch.lora import LoraWeight as PortLoraWeight
+
+    class LoraWeight:  # a wrapper that is not the port's: no dispatch
         pass
 
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    with pytest.raises(TypeError, match="unsupported weight type LoraWeight"):
         tq.qmatmul(x, LoraWeight())
+    lw = PortLoraWeight(base=torch.ones(4, 3), a=torch.ones(4, 1), b=torch.ones(1, 3), scale=0.5)
+    assert torch.equal(tq.qmatmul(x, lw), torch.full((2, 3), 4.0 + 0.5 * 4.0))

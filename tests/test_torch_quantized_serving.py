@@ -279,8 +279,13 @@ def test_load_pretrained_model_quantized_on_cpu(setup, bits, tmp_path):
     px = _t(setup["px"])
     res = model.generate([IDS], px, px, px, max_new_tokens=MAX_NEW)
     assert [int(t) for t in res.sequences[0][: int(res.num_generated[0])]] == _jax_tokens(setup, bits)
-    with pytest.raises(NotImplementedError):
-        load_pretrained_model(path, model_base=path, device="cpu", **kw)
+    # Over a base (the adapter-only branch, here the checkpoint over itself):
+    # the same weights, quantized alike.
+    _, over, *_ = load_pretrained_model(path, model_base=path, device="cpu", dtype=torch.float32,
+                                        **kw)
+    assert torch.equal(over.params["lm"]["layers"]["q_proj"].q, lp["q_proj"].q)
+    res = over.generate([IDS], px, px, px, max_new_tokens=MAX_NEW)
+    assert [int(t) for t in res.sequences[0][: int(res.num_generated[0])]] == _jax_tokens(setup, bits)
 
 
 def test_quantized_tower_takes_the_unfused_blocks(setup, monkeypatch):

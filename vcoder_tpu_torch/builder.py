@@ -10,8 +10,12 @@ with the same name-based gating of the seg/depth processors and the same
 CUDA is absent unless ``device="cpu"``). ``load_8bit`` / ``load_4bit``
 quantize the large matmul weights on the device after loading
 (``quant.quantize_params``, as ``vcoder_tpu/builder.py:203-206``).
-Checkpoints over a ``model_base`` (adapter, LoRA) wait for a later slice and
-raise ``NotImplementedError``.
+
+With a ``model_base`` (``vcoder_tpu/builder.py:172-199``): a directory whose
+model name says "lora" is a PEFT LoRA checkpoint, merged into the base
+(``checkpoint.load_lora_checkpoint``); any other is an adapter-only
+checkpoint (projectors, ``vcoder_lm_emb``) whose state dict is overlaid on
+the base's, with the config read from the adapter directory.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import Optional, Sequence
 import torch
 
 from vcoder_tpu_torch import generation as gen_mod
-from vcoder_tpu_torch.checkpoint import load_hf_checkpoint
+from vcoder_tpu_torch.checkpoint import load_hf_checkpoint, load_lora_checkpoint, load_state
 from vcoder_tpu_torch.config import VCoderConfig
 from vcoder_tpu_torch.device import resolve_device
 from vcoder_tpu_torch.mm_tokens import get_model_name_from_path
@@ -147,9 +151,20 @@ def load_pretrained_model(
     dev = resolve_device(device)
     if model_name is None:
         model_name = get_model_name_from_path(model_path)
-    if model_base is not None:
-        raise NotImplementedError("adapter and LoRA checkpoints over a base are not ported yet")
-    cfg, params = load_hf_checkpoint(model_path, dtype=dtype, device=dev)
+    if model_base is not None and "lora" in model_name.lower():
+        cfg, params = load_lora_checkpoint(model_path, model_base, dtype=dtype, device=dev)
+    elif model_base is not None:
+        overlay = {}
+        for k, v in load_state(model_path).items():
+            # Reference-style 'base_model.' and bare prefixes are tolerated.
+            k = k.replace("base_model.model.", "")
+            if not k.startswith(("model.", "lm_head.")):
+                k = "model." + k
+            overlay[k] = v
+        cfg, params = load_hf_checkpoint(model_base, dtype=dtype, device=dev,
+                                         state_overlay=overlay, config_dir=model_path)
+    else:
+        cfg, params = load_hf_checkpoint(model_path, dtype=dtype, device=dev)
     if load_8bit or load_4bit:
         params = quantize_params(params, bits=8 if load_8bit else 4)
 

@@ -12,6 +12,12 @@ The safetensors format is read and written here (an 8-byte little-endian
 header length, a JSON header, raw little-endian bytes), so no
 ``safetensors`` package is needed. ``from_jax_params`` turns the JAX
 package's parameter tree, given as numpy arrays, into the port's parameters.
+
+Checkpoints over a base (``vcoder_tpu/checkpoint.py:448,533``):
+:func:`load_lora_checkpoint` merges a PEFT LoRA directory into its base
+(with the ``non_lora_trainables.bin`` overlay), and ``load_hf_checkpoint``
+takes a ``state_overlay`` and a ``config_dir`` for an adapter-only
+directory over a base.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 
 from vcoder_tpu_torch.config import TextConfig, VCoderConfig, VisionConfig, projector_depth
 from vcoder_tpu_torch.device import resolve_device
+from vcoder_tpu_torch.lora import LoraWeight, MultiLoraWeight
 from vcoder_tpu_torch.ops.quant import QuantizedTensor
 
 StateDict = Dict[str, torch.Tensor]
@@ -93,8 +100,9 @@ def write_safetensors(path: str, state: StateDict) -> None:
 
 
 def load_state(model_dir: str) -> StateDict:
-    """All weight shards of a checkpoint directory: *.safetensors, else the
-    torch ``.bin`` shards (loaded with ``weights_only=True``)."""
+    """All weight shards of a checkpoint directory (``load_safetensors_state
+    :215``): *.safetensors, else the torch ``.bin`` shards (loaded with
+    ``weights_only=True``)."""
     files = sorted(f for f in os.listdir(model_dir) if f.endswith(".safetensors"))
     state: StateDict = {}
     if files:
@@ -329,36 +337,93 @@ def save_pretrained(model_dir: str, params: dict, cfg: VCoderConfig) -> None:
 
 def _map_tensors(tree, fn):
     """``fn`` over every tensor of a parameter tree, into quantized leaves
-    (their ``q`` and ``scale``) too."""
+    (their ``q`` and ``scale``) and LoRA wrappers too."""
     if isinstance(tree, dict):
         return {k: _map_tensors(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_map_tensors(v, fn) for v in tree]
     if isinstance(tree, QuantizedTensor):
         return QuantizedTensor(fn(tree.q), fn(tree.scale), tree.bits)
+    if isinstance(tree, LoraWeight):
+        return LoraWeight(_map_tensors(tree.base, fn), fn(tree.a), fn(tree.b), tree.scale)
+    if isinstance(tree, MultiLoraWeight):
+        return MultiLoraWeight(_map_tensors(tree.base, fn), fn(tree.a), fn(tree.b), fn(tree.idx))
     return fn(tree)
 
 
-def load_hf_checkpoint(model_dir: str, *, dtype=torch.bfloat16, device="cuda"):
-    """Load a local HF-format VCoder/LLaVA checkpoint directory onto
-    ``device`` (``dtype=None`` keeps the stored dtypes). Returns
-    (config, params)."""
-    dev = resolve_device(device)
-    with open(os.path.join(model_dir, "config.json")) as f:
-        cfg = VCoderConfig.from_hf_config(json.load(f))
-    params = import_vcoder(load_state(model_dir), cfg)
-    params = _map_tensors(
+def _place(params, dtype, dev):
+    return _map_tensors(
         params, lambda t: t.to(device=dev, dtype=dtype if dtype is not None else t.dtype)
     )
-    return cfg, params
+
+
+def _read_config(model_dir: str) -> VCoderConfig:
+    with open(os.path.join(model_dir, "config.json")) as f:
+        return VCoderConfig.from_hf_config(json.load(f))
+
+
+def load_hf_checkpoint(model_dir: str, *, dtype=torch.bfloat16, device="cuda",
+                       state_overlay: StateDict = None, config_dir: str = None):
+    """Load a local HF-format VCoder/LLaVA checkpoint directory onto
+    ``device`` (``dtype=None`` keeps the stored dtypes). ``state_overlay``
+    entries replace the loaded state before import (an adapter over a base);
+    ``config_dir`` reads config.json from another directory. Returns
+    (config, params)."""
+    dev = resolve_device(device)
+    cfg = _read_config(config_dir or model_dir)
+    state = load_state(model_dir)
+    if state_overlay:
+        state.update(state_overlay)
+    return cfg, _place(import_vcoder(state, cfg), dtype, dev)
+
+
+def load_lora_checkpoint(model_path: str, model_base: str, *, dtype=torch.bfloat16,
+                         device="cuda"):
+    """A PEFT-format LoRA checkpoint directory over a base, merged (the
+    reference's LoRA path, model/builder.py:44-81): the base's weights, the
+    ``non_lora_trainables.bin`` overlay with its prefix rules, then
+    ``W += scale * B @ A`` in HF's ``[out, in]`` layout, in f32, rounded to
+    the stored dtype. Returns (config, params)."""
+    from vcoder_tpu_torch.lora import adapter_scale, read_adapter_config, read_adapter_state
+
+    dev = resolve_device(device)
+    cfg = _read_config(model_path)
+    state = load_state(model_base)
+    # Non-LoRA trainables: projectors, vcoder_lm_emb, embeddings.
+    nlt_path = os.path.join(model_path, "non_lora_trainables.bin")
+    if os.path.exists(nlt_path):
+        non_lora = torch.load(nlt_path, map_location="cpu", weights_only=True)
+        non_lora = {(k[11:] if k.startswith("base_model.") else k): v for k, v in non_lora.items()}
+        # The reference (model/builder.py:60-63): if ANY key starts with
+        # 'model.model.', strip 'model.' from EVERY 'model.'-prefixed key,
+        # 'model.lm_head.weight' included.
+        if any(k.startswith("model.model.") for k in non_lora):
+            non_lora = {(k[6:] if k.startswith("model.") else k): v for k, v in non_lora.items()}
+        state.update(non_lora)
+    scale = adapter_scale(read_adapter_config(model_path))
+    adapters = read_adapter_state(model_path)
+    for key, a in adapters.items():
+        if ".lora_A." not in key:
+            continue
+        b = adapters[key.replace(".lora_A.", ".lora_B.")]
+        w_name = key.replace("base_model.model.", "").replace(".lora_A.weight", ".weight")
+        if w_name not in state:
+            raise KeyError(f"LoRA target {w_name} missing from base")
+        w = state[w_name]
+        delta = scale * (b.float() @ a.float())  # [out, r] @ [r, in]
+        state[w_name] = (w.float() + delta).to(w.dtype)
+    return cfg, _place(import_vcoder(state, cfg), dtype, dev)
+
+
+def _is_jax_leaf(leaf, name: str, fields) -> bool:
+    """A JAX wrapper leaf (``QuantizedTensor``, ``LoraWeight``,
+    ``MultiLoraWeight``), matched by its name and fields: the port imports
+    nothing of the JAX package."""
+    return type(leaf).__name__ == name and all(hasattr(leaf, f) for f in fields)
 
 
 def _is_quantized(leaf) -> bool:
-    """A JAX ``QuantizedTensor`` leaf, matched by its name and fields: the
-    port imports nothing of the JAX package."""
-    return type(leaf).__name__ == "QuantizedTensor" and all(
-        hasattr(leaf, f) for f in ("q", "scale", "bits")
-    )
+    return _is_jax_leaf(leaf, "QuantizedTensor", ("q", "scale", "bits"))
 
 
 def from_jax_params(params_np, cfg: VCoderConfig, device="cuda") -> dict:
@@ -367,16 +432,22 @@ def from_jax_params(params_np, cfg: VCoderConfig, device="cuda") -> dict:
     layouts are the same, so this converts leaf by leaf (bf16 arrays travel
     as their 16-bit patterns). A JAX ``QuantizedTensor`` leaf (its ``q`` and
     ``scale`` as numpy, its ``bits``) becomes the port's
-    :class:`~vcoder_tpu_torch.ops.quant.QuantizedTensor` over the same bytes."""
+    :class:`~vcoder_tpu_torch.ops.quant.QuantizedTensor` over the same bytes,
+    and a JAX ``LoraWeight`` / ``MultiLoraWeight`` the port's
+    (``vcoder_tpu_torch/lora.py``) over converted fields."""
     dev = resolve_device(device)
     q_proj = params_np["lm"]["layers"]["q_proj"]
-    n_layers = np.shape(q_proj.q if _is_quantized(q_proj) else q_proj)[0]
+    n_layers = q_proj.shape[0]
     if n_layers != cfg.text.num_layers:
         raise ValueError(f"{n_layers} decoder layers, config says {cfg.text.num_layers}")
 
     def conv(a):
         if _is_quantized(a):
             return QuantizedTensor(conv(a.q), conv(a.scale), int(a.bits))
+        if _is_jax_leaf(a, "LoraWeight", ("base", "a", "b", "scale")):
+            return LoraWeight(conv(a.base), conv(a.a), conv(a.b), float(a.scale))
+        if _is_jax_leaf(a, "MultiLoraWeight", ("base", "a", "b", "idx")):
+            return MultiLoraWeight(conv(a.base), conv(a.a), conv(a.b), conv(a.idx))
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":
             return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(dev)

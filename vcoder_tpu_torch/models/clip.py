@@ -9,8 +9,14 @@
 * With ``attn_impl`` "auto" and plain attention weights the blocks take the
   fused attention-block route (``ops/vit_attention.py``: the CUDA kernels on
   CUDA, the plain version on the CPU), and the caller adds the out bias and
-  the residual (``:277``). The MLP stays ``qmatmul`` (``FUSE_MLP_DEFAULT=False``,
-  ``:118``). ``attn_impl="xla"``, quantized attention weights, or a tower
+  the residual (``:277``). The MLP stays ``qmatmul`` unless
+  :data:`FUSE_MLP_DEFAULT` is set (``:118``, False as in JAX): then each
+  block's MLP half is ``fused_block_mlp`` (``:278-283``), and the route also
+  needs plain fc1/fc2 weights (``:152-156``). ``clip_encode`` reads the flag
+  at call time; the JAX package binds it as a default argument when the
+  module is imported (``:123,233``), so there only a direct call of
+  ``_run_blocks_fused(fuse_mlp=True)`` reaches its kernel.
+  ``attn_impl="xla"``, quantized attention weights, or a tower
   that autograd differentiates (a stage that trains it, ``"all"``: the fused
   kernel has no backward) run the unfused blocks through the attention
   dispatcher, which is plain differentiable torch at the tower's head dim.
@@ -23,7 +29,16 @@ import torch
 from vcoder_tpu_torch.config import VisionConfig
 from vcoder_tpu_torch.ops.attention import multi_head_attention
 from vcoder_tpu_torch.ops.quant import qmatmul as qm
-from vcoder_tpu_torch.ops.vit_attention import fused_block_attention, repack_block
+from vcoder_tpu_torch.ops.vit_attention import (
+    fused_block_attention,
+    fused_block_mlp,
+    pick_i_block,
+    repack_block,
+)
+
+#: Run each fused block's MLP half through ``fused_block_mlp``; read by
+#: ``clip_encode`` at call time.
+FUSE_MLP_DEFAULT = False
 
 
 def init_clip_params(
@@ -106,18 +121,19 @@ def _mlp(x, lp, eps):
     return x + (qm(quick_gelu(qm(h, lp["fc1"]) + lp["fc1_bias"]), lp["fc2"]) + lp["fc2_bias"])
 
 
-def _fused_eligible(params: dict, attn_impl: str, differentiate: bool) -> bool:
+def _fused_eligible(params: dict, attn_impl: str, differentiate: bool,
+                    fuse_mlp: bool = False) -> bool:
     """The fused attention-block route (``clip.py:121-157``) takes plain
     attention weights only: quantized ones go through ``_run_blocks``, whose
-    ``qmatmul`` handles them (the MLP runs through ``qmatmul`` on both
-    routes). Nor does it take a tower that autograd differentiates
-    (``differentiate``, decided by the caller): the kernel has no backward.
-    JAX's TPU-only conditions (backend, mesh, Mosaic tiling) have no
-    counterpart here."""
+    ``qmatmul`` handles them. With ``fuse_mlp`` it takes plain fc1/fc2 only
+    (the MLP kernel reads them as tensors); without, the MLP runs through
+    ``qmatmul`` on both routes. Nor does it take a tower that autograd
+    differentiates (``differentiate``, decided by the caller): the kernels
+    have no backward. JAX's TPU-only conditions (backend, mesh, Mosaic
+    tiling) have no counterpart here."""
     lp = params["layers"]
-    plain = all(
-        isinstance(lp[k], torch.Tensor) for k in ("q_proj", "k_proj", "v_proj", "out_proj")
-    )
+    names = ("q_proj", "k_proj", "v_proj", "out_proj") + (("fc1", "fc2") if fuse_mlp else ())
+    plain = all(isinstance(lp[k], torch.Tensor) for k in names)
     return attn_impl == "auto" and plain and not differentiate
 
 
@@ -147,8 +163,9 @@ def clip_encode(
     )
 
     n_blocks = _num_blocks(cfg)
-    if _fused_eligible(params, attn_impl, differentiate):
-        x = _run_blocks_fused(params, cfg, x, n_blocks)
+    fuse_mlp = FUSE_MLP_DEFAULT
+    if _fused_eligible(params, attn_impl, differentiate, fuse_mlp):
+        x = _run_blocks_fused(params, cfg, x, n_blocks, fuse_mlp=fuse_mlp)
     else:
         x = _run_blocks(params, cfg, x, n_blocks, attn_impl)
 
@@ -176,17 +193,23 @@ def _run_blocks(params, cfg, x, n_blocks, attn_impl):
     return x
 
 
-def _run_blocks_fused(params, cfg, x, n_blocks):
+def _run_blocks_fused(params, cfg, x, n_blocks, *, fuse_mlp: bool = False):
     """Blocks with the fused attention block (``clip.py:232``): one
     ``fused_block_attention`` call per layer on the LN1 output; the weight
-    layout is built per call, as the JAX package repacks in-graph."""
+    layout is built per call, as the JAX package repacks in-graph. With
+    ``fuse_mlp`` the MLP half is one ``fused_block_mlp`` call per layer."""
     H = cfg.num_heads
     eps = cfg.layer_norm_eps
+    ib = pick_i_block(cfg.intermediate_size)
     for l in range(n_blocks):
         lp = _layer(params, l)
         h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], eps)
         wqkv_t, bqkv, wo_t = repack_block(lp, H)
         a = fused_block_attention(h, wqkv_t, bqkv, wo_t, n_heads=H)
         x = x + a + lp["out_bias"]
-        x = _mlp(x, lp, eps)
+        if fuse_mlp:
+            x = fused_block_mlp(x, lp["ln2_scale"], lp["ln2_bias"], lp["fc1"], lp["fc1_bias"],
+                                lp["fc2"], lp["fc2_bias"], eps=eps, i_block=ib)
+        else:
+            x = _mlp(x, lp, eps)
     return x

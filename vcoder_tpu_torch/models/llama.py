@@ -8,10 +8,13 @@
 * RMSNorm normalizes in f32, casts to the input dtype, then multiplies by the
   weight (``llama.py:85-91``); RoPE is rotate-half over f32 positions
   (``:94-114``).
-* :func:`llama_paged_decode` / :func:`llama_paged_verify` (``:392,576``, the
-  ``FUSED_APPEND=False`` branch) run the same layers over KV page pools
-  (``ops/paged_attention.py``), bf16 or int8 with scales from
-  :func:`_kv_quantize` (``:178``); the pools are written in place.
+* :func:`llama_paged_decode` / :func:`llama_paged_verify` (``:392,576``) run
+  the same layers over KV page pools (``ops/paged_attention.py``), bf16 or
+  int8 with scales from :func:`_kv_quantize` (``:178``); the pools are
+  written in place. With ``ops.paged_attention.FUSED_APPEND`` (read at call
+  time) a decode step and a verify window of at most 16 tokens append and
+  attend in one kernel per layer (``:507-540,628``); otherwise the writers
+  append and the paged kernel attends.
 * ``llama_forward(remat=...)`` (``:203,347-357``) checkpoints each layer of
   the cache-free (training) path: ``True`` recomputes the whole layer in the
   backward, ``"dots"`` keeps the projection products and recomputes the rest
@@ -281,11 +284,12 @@ def llama_paged_decode(
     k_scale: Optional[torch.Tensor] = None,  # [L, n_pages, KH, page] f32
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One decode step over paged KV (``llama.py:392``, single device, the
-    ``FUSED_APPEND=False`` branch): each layer writes the step's K/V (int8 +
-    scales when ``k_scale`` is given) into the row's current page, then
-    attends with the paged kernel over ``lengths + active`` tokens. The pools
-    are updated IN PLACE; returns hidden [B, 1, D] after the final norm."""
+    """One decode step over paged KV (``llama.py:392``, single device): each
+    layer writes the step's K/V (int8 + scales when ``k_scale`` is given)
+    into the row's current page and attends over ``lengths + active``
+    tokens -- in one fused kernel with ``FUSED_APPEND``, else the writers
+    then the paged kernel. The pools are updated IN PLACE; returns hidden
+    [B, 1, D] after the final norm."""
     from vcoder_tpu_torch.ops import paged_attention as pa
 
     B, T, _ = inputs_embeds.shape
@@ -293,6 +297,7 @@ def llama_paged_decode(
         raise ValueError(f"decode takes one token per row, got {T}")
     page = k_pages.shape[3]
     quantized = k_scale is not None
+    fused = pa.FUSED_APPEND
     cos, sin = rope_cos_sin(positions[:, None], cfg.head_dim, cfg.rope_theta)
     pos = positions.long()
     ids, valid = pa.lookup_pages(page_table, (pos // page)[:, None])
@@ -304,7 +309,20 @@ def llama_paged_decode(
     for l in range(L):
         lp = {k: v[l] for k, v in params["layers"].items()}
         q, k, v = _layer_qkv(lp, cfg, x, cos, sin)
-        if quantized:
+        if fused:
+            # The token's K/V enter the kernel as operands: attended from
+            # there and written to its slot in the same launch.
+            kw = dict(window=1)
+            if quantized:
+                k, ks = _kv_quantize(k)  # [B, 1, KH, HD], [B, 1, KH, 1]
+                v, vs = _kv_quantize(v)
+                kw.update(k_scale=k_scale, v_scale=v_scale, new_ks=ks[..., 0],
+                          new_vs=vs[..., 0])
+            attn = pa.carry_paged_attention_fused(
+                q, k.to(k_pages.dtype), v.to(v_pages.dtype), k_pages, v_pages, page_table,
+                attn_lengths, positions, active, l, **kw,
+            )[:, 0]
+        elif quantized:
             kq, ks = _kv_quantize(k[:, 0])
             vq, vs = _kv_quantize(v[:, 0])
             pa.append_token_layer(k_pages, l, kq, row_pages, offsets, active)
@@ -339,18 +357,23 @@ def llama_paged_verify(
     v_scale: Optional[torch.Tensor] = None,
     page_aligned: bool = False,
 ) -> torch.Tensor:
-    """Window forward over paged KV (``llama.py:576``, single device, the
-    ``FUSED_APPEND=False`` branch): write the window's k tokens (a window may
-    straddle a page boundary) and attend each causally up to its own
-    position. ``page_aligned`` is the caller's guarantee that
-    ``positions[:, 0] % page == 0``; with ``k % page == 0`` the write is
-    page-granular (``:635-636``). Pools are updated IN PLACE; returns hidden
-    [B, k, D] after the final norm."""
+    """Window forward over paged KV (``llama.py:576``, single device): write
+    the window's k tokens (a window may straddle a page boundary) and attend
+    each causally up to its own position. With ``FUSED_APPEND`` a window of
+    at most 16 tokens (speculative verify) appends and attends in one fused
+    kernel per layer (``:628``); chunk windows keep the writers and the paged
+    kernel. The window must be position-contiguous per row (the fused kernel
+    writes ``positions[:, 0] + t``), which both callers guarantee.
+    ``page_aligned`` is the caller's guarantee that ``positions[:, 0] % page
+    == 0``; with ``k % page == 0`` the write is page-granular
+    (``:635-636``). Pools are updated IN PLACE; returns hidden [B, k, D]
+    after the final norm."""
     from vcoder_tpu_torch.ops import paged_attention as pa
 
     B, k, _ = inputs_embeds.shape
     quantized = k_scale is not None
-    use_pages = page_aligned and k % k_pages.shape[3] == 0
+    use_fused = pa.FUSED_APPEND and k <= 16
+    use_pages = page_aligned and not use_fused and k % k_pages.shape[3] == 0
     append = pa.append_pages_layer if use_pages else pa.append_tokens_layer
     append_s = pa.append_page_scales_layer if use_pages else pa.append_token_scales_layer
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
@@ -360,7 +383,18 @@ def llama_paged_verify(
     for l in range(L):
         lp = {name: t[l] for name, t in params["layers"].items()}
         q, kk, v = _layer_qkv(lp, cfg, x, cos, sin)
-        if quantized:
+        if use_fused:
+            kw = dict(window=k)
+            if quantized:
+                kk, ks = _kv_quantize(kk)
+                v, vs = _kv_quantize(v)
+                kw.update(k_scale=k_scale, v_scale=v_scale, new_ks=ks[..., 0],
+                          new_vs=vs[..., 0])
+            attn = pa.carry_paged_attention_fused(
+                q, kk.to(k_pages.dtype), v.to(v_pages.dtype), k_pages, v_pages, page_table,
+                attn_lengths, positions[:, 0], active, l, **kw,
+            )
+        elif quantized:
             kq, ks = _kv_quantize(kk)
             vq, vs = _kv_quantize(v)
             append(k_pages, l, kq, positions, page_table, active)

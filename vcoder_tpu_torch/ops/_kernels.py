@@ -48,12 +48,19 @@ _SIGNATURES = {
         + [_F, _I, _P],  # scale causal stream
     ),
     "gemm_bias": ("gemm_bias", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "vit_mlp": (
+        "vit_mlp",
+        [_P] * 10  # x ln_s ln_b fc1 b1 fc2 b2 h g y
+        + [_I] * 3  # M Dm I
+        + [_F, _P],  # eps stream
+    ),
     "paged_attn": (
         "paged_attn",
         [_P] * 8  # q kp vp ks vs table lengths out
+        + [_P] * 6  # fused: nk nv nks nvs positions active
         + [_I] * 7  # B window H KH n_pages page P_max
         + [_L] * 3  # q batch, token, head strides
-        + [_F, _I, _P],  # scale quant stream
+        + [_F, _I, _I, _P],  # scale quant fused stream
     ),
     "int4_matmul": (
         "int4_matmul",

@@ -12,6 +12,9 @@ Port of the single-device parts of ``vcoder_tpu/ops/paged_attention.py``:
 * :func:`paged_attention` (``:132``; ``_paged_kernel:55``) over an UNSTACKED
   pool ``[n_pages, KH, page, D]``, which the CUDA kernel serves as a one-layer
   pool at window 1;
+* :func:`carry_paged_attention_fused` (``:1425``; ``_carry_kernel_fused
+  :1263``): the fused append + attend of a decode or verify window, bf16 or
+  int8 pools, taken by the decoder when :data:`FUSED_APPEND` is set;
 * the page writers ``append_token_layer:1090``, ``append_scale_layer:1127``,
   ``append_tokens_layer:477``, ``append_token_scales_layer:879``,
   ``append_pages_layer:536``, ``append_page_scales_layer:578`` and
@@ -24,7 +27,18 @@ page ids come from the page table, clipped to the pool; a row of length 0
 gives zeros. The math is ``_online_softmax_page_step:248`` with
 ``FOLD_SCALES=True``: f32 logits scaled by ``D**-0.5``, then by the key's
 scale; online softmax page by page; the row sum taken before the value's
-scale; p rounded to the value dtype before P @ V.
+scale; p rounded to the value dtype before P @ V. A key that no query column
+sees is excluded by selects (its V row and V-scale read as 0), never by a
+product with 0: in the fused kernel such slots may be mid-write.
+
+The fused form (``:1233-1421``): ``lengths`` include the window for ACTIVE
+rows only; the page loop attends the ``old = length - window * active``
+pre-window tokens (every column sees them all), then the window itself runs
+as one more step from the ``new_k``/``new_v`` operands with the intra-window
+causal mask (fully masked for an inactive row), and the window's K/V (int8:
+and their scales) are written to slots ``positions[b] + t`` through the page
+table; inactive rows write the scratch page, a lookup past the table's end
+writes page 0 (the token writer's rule, below).
 
 No aliasing pass-through: the JAX wrappers return the pools through
 ``input_output_aliases``; here the pools are read in place and the wrappers
@@ -35,12 +49,17 @@ may keep an old reference and expect it unchanged.
 Wrappers take the plain version for a tensor on the CPU and launch the
 kernel for a tensor on CUDA (bf16 q, head_dim 128, pages a multiple of 8 up
 to 256; anything else raises). The counters ``launches_bf16`` (K3: stacked
-bf16 windows), ``launches_q8`` (K4: stacked int8, any window) and
+bf16 windows), ``launches_q8`` (K4: stacked int8, any window),
 ``launches_k8`` (K8: one-layer pool, one token -- which also carries the
-engines' bf16 decode, see :func:`carry_paged_attention`) count kernel
-launches; ``launches_by_window`` counts the stacked launches by window. What
-bounds the kernel and what its design does about it is in the note at the
-top of ``csrc/paged_attn.cu``.
+engines' bf16 decode, see :func:`carry_paged_attention`) and
+``launches_fused`` (K7: fused append + attend, either pool type) count
+kernel launches; ``launches_by_window`` counts the stacked and fused
+launches by window. What bounds the kernel and what its design does about it
+is in the note at the top of ``csrc/paged_attn.cu``.
+
+:data:`FUSED_APPEND` is read at call time by ``models/llama.py`` (the JAX
+package reads its flag when a step is traced); it defaults to False, as
+there.
 
 Out-of-range indices follow JAX, which gathers with a fill value and drops
 out-of-range scatters where PyTorch would fault:
@@ -71,16 +90,21 @@ from vcoder_tpu_torch.ops import _kernels
 
 NEG_INF = -1e30
 
+#: Decode steps and verify windows of at most 16 tokens append and attend in
+#: one kernel (:func:`carry_paged_attention_fused`); read at call time.
+FUSED_APPEND = False
+
 launches_bf16 = 0
 launches_q8 = 0
 launches_k8 = 0
+launches_fused = 0
 launches_by_window: Dict[int, int] = {}
 
 
 def reset_launches() -> None:
     """Set every launch counter of this module to 0."""
-    global launches_bf16, launches_q8, launches_k8
-    launches_bf16 = launches_q8 = launches_k8 = 0
+    global launches_bf16, launches_q8, launches_k8, launches_fused
+    launches_bf16 = launches_q8 = launches_k8 = launches_fused = 0
     launches_by_window.clear()
 
 
@@ -115,50 +139,78 @@ def paged_attention_multi_ref(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The kernel's function over one layer's pool, page by page as
-    ``_online_softmax_page_step`` runs it. Pages past a row's live count are
-    fully masked, which leaves the carry bit-for-bit unchanged, so the loop
-    runs the batch's largest live count for every row."""
+    ``_online_softmax_page_step`` runs it."""
     B, k, H, D = q.shape
     if k != window:
         raise ValueError(f"q carries {k} window tokens, window={window}")
     n_pages, KH, page, _ = k_pages.shape
     if H % KH:
         raise ValueError(f"{H} query heads over {KH} KV heads")
-    dt = q.dtype
     dev = q.device
     qt = _columns(q, KH).float()
     C = qt.shape[2]
-    scale = D**-0.5
     lengths = lengths.to(device=dev, dtype=torch.int64)
     table = page_table.to(device=dev, dtype=torch.int64)
-    P_max = table.shape[1]
-    n_live = ((lengths + page - 1) // page).clamp(0, P_max)
-    n_iter = int(n_live.max()) if B else 0
+    n_live = ((lengths + page - 1) // page).clamp(0, table.shape[1])
     # Column c sees tok <= (length - window) + c % window.
     lim = (lengths - window)[:, None] + (torch.arange(C, device=dev) % window)[None, :]
-    m = torch.full((B, KH, C, 1), NEG_INF, dtype=torch.float32, device=dev)
-    lsum = torch.zeros((B, KH, C, 1), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, KH, C, D), dtype=torch.float32, device=dev)
-    tok0 = torch.arange(page, device=dev)
-    for j in range(n_iter):
+    carry = _page_loop(qt, k_pages, v_pages, table, n_live, lim, _init_carry(B, KH, C, D, dev),
+                       dt=q.dtype, k_scale=k_scale, v_scale=v_scale)
+    return _finish(carry, q.dtype, k)
+
+
+def _key_step(qt, kb, vb, ks, vs, tok, lim, carry, *, dt, scale):
+    """One block of keys through the online softmax
+    (``_online_softmax_page_step``). qt [B, KH, C, D] f32; kb/vb
+    [B, KH, n, D]; ks/vs [B, KH, n] or None; tok [n] token indices; lim
+    [B, C]: column c sees tok <= lim. A key no column sees has its V row and
+    V-scale replaced by 0."""
+    m, lsum, acc = carry
+    if ks is not None:
+        kb, vb = kb.to(dt), vb.to(dt)
+    s = torch.einsum("bkcd,bkpd->bkcp", qt, kb.float()) * scale
+    if ks is not None:
+        s = s * ks[:, :, None, :]
+    mask = (tok[None, None, :] <= lim[:, :, None])[:, None]  # [B, 1, C, n]
+    seen = (tok[None, :] <= lim.amax(dim=1, keepdim=True))[:, None]  # [B, 1, n]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    alpha = torch.exp(m - m_new)
+    p = torch.where(mask, torch.exp(s - m_new), torch.zeros_like(s))
+    lsum = alpha * lsum + p.sum(dim=-1, keepdim=True)
+    if vs is not None:
+        p = p * torch.where(seen, vs, torch.zeros_like(vs))[:, :, None, :]
+    v32 = torch.where(seen[..., None], vb.float(), torch.zeros((), device=vb.device))
+    pv = torch.einsum("bkcp,bkpd->bkcd", p.to(vb.dtype).float(), v32)
+    return m_new, lsum, acc * alpha + pv
+
+
+def _page_loop(qt, k_pages, v_pages, table, n_live, lim, carry, *, dt, k_scale=None,
+               v_scale=None):
+    """The key step over each row's live pages of one layer's pool, page by
+    page. Pages past a row's live count are fully masked, which leaves the
+    carry bit-for-bit unchanged, so the loop runs the batch's largest live
+    count for every row."""
+    n_pages, KH, page, D = k_pages.shape
+    tok0 = torch.arange(page, device=qt.device)
+    for j in range(int(n_live.max()) if n_live.numel() else 0):
         pg = table[:, j].clamp(0, n_pages - 1)
-        kb, vb = k_pages[pg], v_pages[pg]  # [B, KH, page, D]
+        ks = vs = None
         if k_scale is not None:
-            kb, vb = kb.to(dt), vb.to(dt)
-        s = torch.einsum("bkcd,bkpd->bkcp", qt, kb.float()) * scale
-        if k_scale is not None:
-            s = s * k_scale[pg][:, :, None, :]
-        mask = ((j * page + tok0)[None, None, :] <= lim[:, :, None])[:, None]
-        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.where(mask, torch.exp(s - m_new), torch.zeros_like(s))
-        lsum = alpha * lsum + p.sum(dim=-1, keepdim=True)
-        if v_scale is not None:
-            p = p * v_scale[pg][:, :, None, :]
-        pv = torch.einsum("bkcp,bkpd->bkcd", p.to(vb.dtype).float(), vb.float())
-        acc = acc * alpha + pv
-        m = m_new
+            ks, vs = k_scale[pg], v_scale[pg]
+        carry = _key_step(qt, k_pages[pg], v_pages[pg], ks, vs, j * page + tok0, lim, carry,
+                          dt=dt, scale=D**-0.5)
+    return carry
+
+
+def _init_carry(B, KH, C, D, dev):
+    return (torch.full((B, KH, C, 1), NEG_INF, dtype=torch.float32, device=dev),
+            torch.zeros((B, KH, C, 1), dtype=torch.float32, device=dev),
+            torch.zeros((B, KH, C, D), dtype=torch.float32, device=dev))
+
+
+def _finish(carry, dt, k):
+    _, lsum, acc = carry
     l_safe = torch.where(lsum == 0.0, torch.ones_like(lsum), lsum)
     return _uncolumns((acc / l_safe).to(dt), k)
 
@@ -189,6 +241,51 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, lengths):
     )[:, 0]
 
 
+def carry_paged_attention_fused_ref(
+    q, new_k, new_v, k_pages, v_pages, page_table, lengths, positions, active, layer, *,
+    window, k_scale=None, v_scale=None, new_ks=None, new_vs=None,
+):
+    """Plain version of :func:`carry_paged_attention_fused`: attend the
+    pre-window pages, then the window from the operands, then append the
+    window to the pools (in place). Returns out [B, k, H, D]."""
+    B, k, H, D = q.shape
+    if k != window:
+        raise ValueError(f"q carries {k} window tokens, window={window}")
+    l = int(layer)
+    kp, vp = k_pages[l], v_pages[l]
+    n_pages, KH, page, _ = kp.shape
+    dev, dt = q.device, q.dtype
+    quant = k_scale is not None
+    act = active.to(dev).bool()
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+    table = page_table.to(device=dev, dtype=torch.int64)
+    old = lengths - window * act.long()
+    qt = _columns(q, KH).float()
+    C = qt.shape[2]
+    carry = _init_carry(B, KH, C, D, dev)
+    # Every column sees all pre-window tokens: tok < old.
+    n_read = ((old + page - 1) // page).clamp(0, table.shape[1])
+    carry = _page_loop(qt, kp, vp, table, n_read, (old - 1)[:, None].expand(B, C), carry,
+                       dt=dt, k_scale=k_scale[l] if quant else None,
+                       v_scale=v_scale[l] if quant else None)
+    # The window as one more key block, causal within it; none for an
+    # inactive row.
+    col_t = (torch.arange(C, device=dev) % window)[None, :]
+    lim_w = torch.where(act[:, None], col_t, torch.full_like(col_t, -1))
+    nks = new_ks.transpose(1, 2).float() if quant else None
+    nvs = new_vs.transpose(1, 2).float() if quant else None
+    carry = _key_step(qt, new_k.transpose(1, 2).to(dt), new_v.transpose(1, 2).to(dt), nks, nvs,
+                      torch.arange(window, device=dev), lim_w, carry, dt=dt, scale=D**-0.5)
+    out = _finish(carry, dt, k)
+    pos2d = positions.to(dev).long()[:, None] + torch.arange(window, device=dev)[None, :]
+    append_tokens_layer(k_pages, l, new_k, pos2d, page_table, act)
+    append_tokens_layer(v_pages, l, new_v, pos2d, page_table, act)
+    if quant:
+        append_token_scales_layer(k_scale, l, new_ks, pos2d, page_table, act)
+        append_token_scales_layer(v_scale, l, new_vs, pos2d, page_table, act)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Kernel launch
 # ---------------------------------------------------------------------------
@@ -204,9 +301,12 @@ def launch_paged_attn(
     window: int,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    fused: Optional[tuple] = None,
 ) -> torch.Tensor:
     """Launch ``paged_attn.cu`` on CUDA tensors (no counting). q may be a
-    strided view with its head dim contiguous."""
+    strided view with its head dim contiguous. ``fused``: the window's
+    ``(new_k, new_v, new_ks, new_vs, positions, active)`` -- the kernel then
+    appends them to the pools (written in place) as it attends."""
     B, k, H, D = q.shape
     n_pages, KH, page, Dk = k_pages.shape
     quant = k_scale is not None
@@ -234,15 +334,33 @@ def launch_paged_attn(
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     if table.ndim != 2 or table.shape[0] != B or lens.shape != (B,):
         raise ValueError("paged_attn: page_table must be [B, P_max] and lengths [B]")
+    ptrs = [None] * 6
+    if fused is not None:
+        nk, nv, nks, nvs, positions, active = fused
+        for name, x, shape, want in (
+            ("new_k", nk, (B, k, KH, D), pool_dtype), ("new_v", nv, (B, k, KH, D), pool_dtype),
+        ) + ((("new_ks", nks, (B, k, KH), torch.float32),
+              ("new_vs", nvs, (B, k, KH), torch.float32)) if quant else ()):
+            if (x.device != q.device or x.dtype != want or tuple(x.shape) != shape
+                    or not x.is_contiguous() or x.data_ptr() % (4 if "s" in name[4:] else 16)):
+                raise ValueError(
+                    f"paged_attn: {name} must be a contiguous, aligned {want} {shape} "
+                    f"on {q.device}")
+        pos = positions.to(device=q.device, dtype=torch.int32).contiguous()
+        act = active.to(device=q.device, dtype=torch.int32).contiguous()
+        if pos.shape != (B,) or act.shape != (B,):
+            raise ValueError("paged_attn: positions and active must be [B]")
+        ptrs = [nk.data_ptr(), nv.data_ptr(), nks.data_ptr() if quant else None,
+                nvs.data_ptr() if quant else None, pos.data_ptr(), act.data_ptr()]
     out = torch.empty((B, k, H, D), dtype=q.dtype, device=q.device)
     fn = _kernels.lib("paged_attn").paged_attn
     err = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-        table.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        table.data_ptr(), lens.data_ptr(), out.data_ptr(), *ptrs,
         B, window, H, KH, n_pages, page, table.shape[1],
         q.stride(0), q.stride(1), q.stride(2),
-        float(D**-0.5), int(quant), _kernels.stream_handle(q.device),
+        float(D**-0.5), int(quant), int(fused is not None), _kernels.stream_handle(q.device),
     )
     _kernels.check(err, "paged_attn")
     return out
@@ -362,6 +480,51 @@ def paged_attention(
     out = launch_paged_attn(q[:, None], k_pages, v_pages, page_table, lengths, window=1)
     launches_k8 += 1
     return out[:, 0]
+
+
+def carry_paged_attention_fused(
+    q: torch.Tensor,  # [B, k, H, D]
+    new_k: torch.Tensor,  # [B, k, KH, D] pool dtype (int8: quantized)
+    new_v: torch.Tensor,
+    k_pages: torch.Tensor,  # [L, n_pages, KH, page, D] stacked pool
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # [B, P_max]
+    lengths: torch.Tensor,  # [B] tokens INCLUDING the window (active rows)
+    positions: torch.Tensor,  # [B] position of window token 0
+    active: torch.Tensor,  # [B] bool
+    layer,
+    *,
+    window: int,
+    k_scale: Optional[torch.Tensor] = None,  # [L, n_pages, KH, page] f32
+    v_scale: Optional[torch.Tensor] = None,
+    new_ks: Optional[torch.Tensor] = None,  # [B, k, KH] f32
+    new_vs: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Fused append + attend over layer ``layer`` (decode at window 1,
+    speculative verify at window k): the window's K/V (and scales for int8
+    pools) are written into each active row's slots from inside the kernel
+    and attended from the operands. Returns out [B, k, H, D]; the pools are
+    written in place. No page-size rule (the TPU's ``page_size % 128`` assert
+    was a Mosaic rule)."""
+    global launches_fused
+    quant = k_scale is not None
+    if quant and k_pages.dtype != torch.int8:
+        raise TypeError(f"int8 pools expected, got {k_pages.dtype}")
+    if not _on_cuda(q):
+        return carry_paged_attention_fused_ref(
+            q, new_k, new_v, k_pages, v_pages, page_table, lengths, positions, active, layer,
+            window=window, k_scale=k_scale, v_scale=v_scale, new_ks=new_ks, new_vs=new_vs,
+        )
+    _kernels.forbid_grad("carry_paged_attention_fused", q, new_k, new_v, new_ks, new_vs)
+    l = int(layer)
+    out = launch_paged_attn(
+        q, k_pages[l], v_pages[l], page_table, lengths, window=window,
+        k_scale=k_scale[l] if quant else None, v_scale=v_scale[l] if quant else None,
+        fused=(new_k, new_v, new_ks, new_vs, positions, active),
+    )
+    launches_fused += 1
+    _count(window)
+    return out
 
 
 # ---------------------------------------------------------------------------

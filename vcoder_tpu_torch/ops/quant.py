@@ -22,9 +22,11 @@ high), the layout of the JAX package, so packed bytes carry across unchanged.
 There is no ``VCODER_INT4_KERNEL`` switch and no shape gate on the int4
 kernel: on the card it is the only route for a 2-D int4 weight below the
 threshold. Nor is there a ``VCODER_W8A8_PREFILL`` switch: ``set_w8a8`` is the
-only toggle of the W8A8 path. LoRA-wrapped weights raise ``NotImplementedError`` (a later
-slice). Mixed float dtypes promote as in JAX (f32 @ bf16 -> f32), where
-PyTorch's ``@`` would refuse them.
+only toggle of the W8A8 path. LoRA-wrapped weights (``lora.py``) dispatch to
+``lora_qmatmul`` / ``multilora_qmatmul``, which call ``qmatmul`` on their
+base, so an adapter rides a plain, int8 or int4 base (``:261-268``); any
+other non-tensor weight raises ``TypeError``. Mixed float dtypes promote as
+in JAX (f32 @ bf16 -> f32), where PyTorch's ``@`` would refuse them.
 """
 
 from __future__ import annotations
@@ -114,9 +116,11 @@ def dequantize(w: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
 
 
 def base_weight_dtype(w):
-    """Storage dtype of a weight leaf: ``torch.int8`` for int8 weights, the
-    string ``"int4"`` for packed int4 (torch has no int4 dtype), else the
-    tensor's dtype."""
+    """Storage dtype of a weight leaf, LoRA wrappers unwrapped:
+    ``torch.int8`` for int8 weights, the string ``"int4"`` for packed int4
+    (torch has no int4 dtype), else the tensor's dtype."""
+    while type(w).__name__ in ("LoraWeight", "MultiLoraWeight"):
+        w = w.base
     if isinstance(w, QuantizedTensor):
         return "int4" if w.bits == 4 else w.q.dtype
     return w.dtype
@@ -166,8 +170,8 @@ class _W8A8Matmul(torch.autograd.Function):
 
 
 def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
-    """``x @ w`` for plain or quantized weights, with JAX's dtype promotion
-    for plain ones."""
+    """``x @ w`` for plain, quantized or LoRA-wrapped weights, with JAX's
+    dtype promotion for plain ones."""
     if isinstance(w, QuantizedTensor):
         if (
             _W8A8_ENABLED
@@ -190,8 +194,14 @@ def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
             y = x[..., 0::2] @ lo.to(x.dtype) + x[..., 1::2] @ hi.to(x.dtype)
             return y * w.scale.to(x.dtype)
         return (x @ w.q.to(x.dtype)) * w.scale.to(x.dtype)
-    if type(w).__name__ in ("LoraWeight", "MultiLoraWeight"):
-        raise NotImplementedError("LoRA-wrapped weights are not ported yet")
+    if not isinstance(w, torch.Tensor):
+        from vcoder_tpu_torch import lora  # lora.py imports this module
+
+        if isinstance(w, lora.LoraWeight):
+            return lora.lora_qmatmul(x, w)
+        if isinstance(w, lora.MultiLoraWeight):
+            return lora.multilora_qmatmul(x, w)
+        raise TypeError(f"qmatmul: unsupported weight type {type(w).__name__}")
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)

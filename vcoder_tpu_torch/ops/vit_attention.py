@@ -1,7 +1,9 @@
-"""The CLIP attention block: CUDA kernels and their plain PyTorch version.
+"""The CLIP block's kernels: the attention block and the MLP half-block, with
+their plain PyTorch versions.
 
-Port of ``vcoder_tpu/ops/vit_attention.py`` (``fused_block_attention:102``
-over the TPU kernel ``_block_kernel:52``). One call computes
+Port of ``vcoder_tpu/ops/vit_attention.py``: ``fused_block_attention:102``
+over the TPU kernel ``_block_kernel:52``, and ``fused_block_mlp:191`` over
+``_mlp_kernel:154``. One attention call computes
 ``MHA(x_ln) @ Wo`` for one CLIP transformer block: the QKV projection with
 its bias, the softmax scale folded into Wq and its bias, bidirectional
 attention, and the out-projection with f32 accumulation. The caller adds the
@@ -14,6 +16,15 @@ layout the attention reads in place), the head-dim-64 flash forward of
 for the out-projection over all ``H * dh`` inputs. The TPU kernel's 584-row
 padding was a sublane rule; here T stays 577 and the kernels mask the ragged
 edge. ``launches`` counts block calls that launched the kernels.
+
+The MLP half-block, :func:`fused_block_mlp`, computes
+``x + fc2(quick_gelu(fc1(LN2(x))))`` with the TPU kernel's roundings (its
+plain version is :func:`fused_block_mlp_ref`, not the tower's unfused
+``_mlp``, which rounds after fc1): on CUDA the three launches of
+``csrc/vit_mlp.cu`` (LN2, fc1 with the bias + quick-GELU epilogue into a
+bf16 ``[B*T, I]`` intermediate, fc2 with the residual + bias epilogue), the
+weights read in their ``[in, out]`` layout. ``launches_mlp`` counts the
+calls that launched them.
 
 Weight layout (:func:`repack_block`): ``wqkv_t [3*Dm, Dm]`` (rows: q|k|v
 outputs, head-major inside each), ``bqkv [3*Dm]`` f32, ``wo_t [Dm, Dm]`` --
@@ -28,6 +39,7 @@ from vcoder_tpu_torch.ops import _kernels
 from vcoder_tpu_torch.ops.flash_attention import launch_flash_fwd
 
 launches = 0
+launches_mlp = 0
 
 
 def repack_block(layer: dict, n_heads: int) -> tuple:
@@ -136,4 +148,91 @@ def fused_block_attention(
     y = torch.empty((B, T, Dm), dtype=x_ln.dtype, device=x_ln.device)
     _gemm(o.view(B * T, Dm), wo_t, None, y.view(B * T, Dm))
     launches += 1
+    return y
+
+
+def pick_i_block(intermediate: int) -> int:
+    """The I-stripe of the plain version's loop (``pick_i_block:304``):
+    the largest of 512, 256, 128 that divides the MLP width, else all of it.
+    The CUDA kernels do not stripe I; the f32 sum over I makes the order
+    immaterial within tolerance."""
+    for ib in (512, 256, 128):
+        if intermediate % ib == 0:
+            return ib
+    return intermediate
+
+
+def fused_block_mlp_ref(x, ln_scale, ln_bias, fc1, fc1_bias, fc2, fc2_bias, *, eps: float,
+                        i_block: int = 512) -> torch.Tensor:
+    """Plain version with the TPU kernel's roundings: LN2 statistics in f32,
+    the normalized row rounded once to the activation dtype; fc1 in f32 plus
+    its bias, quick-GELU in f32, rounded to the activation dtype before fc2;
+    fc2 accumulated in f32 over I stripes of ``i_block``; ``(x + acc) + b2``
+    in f32, rounded once."""
+    dt = x.dtype
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    h = ((x32 - mean) * torch.rsqrt(var + eps) * ln_scale.float() + ln_bias.float()).to(dt)
+    I = fc1.shape[1]
+    if I % i_block:
+        raise ValueError(f"i_block {i_block} does not divide the MLP width {I}")
+    acc = torch.zeros(x32.shape, dtype=torch.float32, device=x.device)
+    for i0 in range(0, I, i_block):
+        t = h.float() @ fc1[:, i0 : i0 + i_block].float() + fc1_bias[i0 : i0 + i_block].float()
+        t = t * torch.sigmoid(1.702 * t)
+        acc = acc + t.to(dt).float() @ fc2[i0 : i0 + i_block].float()
+    return (x32 + acc + fc2_bias.float()).to(dt)
+
+
+def fused_block_mlp(
+    x: torch.Tensor,  # [B, T, Dm] block input (the post-attention residual)
+    ln_scale: torch.Tensor,  # [Dm]
+    ln_bias: torch.Tensor,  # [Dm]
+    fc1: torch.Tensor,  # [Dm, I]
+    fc1_bias: torch.Tensor,  # [I]
+    fc2: torch.Tensor,  # [I, Dm]
+    fc2_bias: torch.Tensor,  # [Dm]
+    *,
+    eps: float,
+    i_block: int = 512,
+) -> torch.Tensor:
+    """One ViT MLP half-block, ``x + fc2(quick_gelu(fc1(LN(x))))``: the
+    kernels on CUDA (bf16 x, fc1 and fc2; LN parameters and biases of any
+    float type, taken in f32), the plain version on the CPU. ``i_block``
+    only sets the plain version's loop."""
+    global launches_mlp
+    if x.device.type == "cpu":
+        return fused_block_mlp_ref(x, ln_scale, ln_bias, fc1, fc1_bias, fc2, fc2_bias, eps=eps,
+                                   i_block=i_block)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_block_mlp: unsupported device {x.device}")
+    _kernels.forbid_grad("fused_block_mlp", x, ln_scale, ln_bias, fc1, fc1_bias, fc2, fc2_bias)
+    B, T, Dm = x.shape
+    I = fc1.shape[1]
+    for name, t, shape in (("x", x, (B, T, Dm)), ("fc1", fc1, (Dm, I)), ("fc2", fc2, (I, Dm))):
+        if (t.dtype != torch.bfloat16 or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.device != x.device or t.data_ptr() % 16):
+            raise ValueError(f"fused_block_mlp: {name} must be a contiguous, 16-byte aligned "
+                             f"bfloat16 {shape} on {x.device}")
+    if Dm % 8 or I % 8:
+        raise ValueError(f"fused_block_mlp: widths {Dm}, {I} must be multiples of 8")
+    vecs = []
+    for name, t, n in (("ln_scale", ln_scale, Dm), ("ln_bias", ln_bias, Dm),
+                       ("fc1_bias", fc1_bias, I), ("fc2_bias", fc2_bias, Dm)):
+        if tuple(t.shape) != (n,) or t.device != x.device or not t.is_floating_point():
+            raise ValueError(f"fused_block_mlp: {name} must be a float [{n}] on {x.device}")
+        vecs.append(t.float().contiguous())
+    M = B * T
+    h = torch.empty((M, Dm), dtype=x.dtype, device=x.device)
+    g = torch.empty((M, I), dtype=x.dtype, device=x.device)
+    y = torch.empty_like(x)
+    s, b, b1, b2 = vecs
+    err = _kernels.lib("vit_mlp").vit_mlp(
+        x.data_ptr(), s.data_ptr(), b.data_ptr(), fc1.data_ptr(), b1.data_ptr(),
+        fc2.data_ptr(), b2.data_ptr(), h.data_ptr(), g.data_ptr(), y.data_ptr(),
+        M, Dm, I, float(eps), _kernels.stream_handle(x.device),
+    )
+    _kernels.check(err, "vit_mlp")
+    launches_mlp += 1
     return y

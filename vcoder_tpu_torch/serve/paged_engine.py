@@ -29,6 +29,14 @@ Differences from the JAX engine, none visible in greedy tokens:
   reachable chunk shape once with every row inactive.
 * The TPU's ``page_size % 128`` rule for int8 pools was a Mosaic rule and is
   not kept.
+
+Multi-LoRA (``lora_adapters``, ``serve/engine.py``): decode and verify steps
+run the stacked params, each row through its own adapter; every prefill --
+dense, the prefix-cache suffix, or a chunked-prefill group, whose rows share
+one adapter -- runs the request's single-adapter view; prefix-cache pages
+and cached vision tables are keyed by the adapter. ``warmup_chunks`` runs
+the zero adapter's view (the stacked params gather one adapter per decode
+row, ``max_batch`` rows, and a group chunk has other row counts).
 """
 
 from __future__ import annotations
@@ -470,6 +478,11 @@ class PagedServingEngine(ServingEngine):
         D = self.cfg.text.hidden_size
         dtype = self.params["lm"]["embed_tokens"].dtype
         modes = [True, False] if vision else [True]
+        params = self.params
+        if self._multilora:
+            from vcoder_tpu_torch.lora import single_adapter_view
+
+            params = single_adapter_view(params, 0)
         with torch.no_grad():
             for gb, kc in shapes:
                 for text_mode in modes:
@@ -478,7 +491,7 @@ class PagedServingEngine(ServingEngine):
                     else:
                         source = torch.zeros((gb, self._src_cap, D), dtype=dtype, device=self.device)
                     hidden = _group_chunk(
-                        self.params, self.cfg, source, self.k_pages, self.v_pages,
+                        params, self.cfg, source, self.k_pages, self.v_pages,
                         self.k_scale, self.v_scale,
                         torch.zeros((gb, self._tbl_cap), dtype=torch.int32, device=self.device),
                         torch.zeros((gb,), dtype=torch.int64, device=self.device), 0,
@@ -486,7 +499,7 @@ class PagedServingEngine(ServingEngine):
                         False, kc=kc, text_mode=text_mode,
                     )
                     _hidden_logits_group(
-                        self.params, hidden, torch.zeros((gb,), dtype=torch.int64, device=self.device)
+                        params, hidden, torch.zeros((gb,), dtype=torch.int64, device=self.device)
                     )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -1,7 +1,8 @@
 """Leaf paths of the port's parameter trees.
 
-A leaf's path is its dict keys and list indices joined by ``/``, and a
-quantized leaf contributes its ``q`` and ``scale`` fields: the convention of
+A leaf's path is its dict keys and list indices joined by ``/``; a
+quantized leaf contributes its ``q`` and ``scale`` fields and a LoRA wrapper
+its ``base``, ``a``, ``b`` (and ``idx``) fields: the convention of
 the JAX package's ``parallel/sharding.py::_path_str`` over its pytrees, of
 which this is the port's copy for plain dictionaries (``quant.py`` builds the
 same paths while it walks). Stage masks, adapter exports and trainer
@@ -15,6 +16,7 @@ from typing import Iterator, Tuple
 
 import torch
 
+from vcoder_tpu_torch.lora import LoraWeight, MultiLoraWeight
 from vcoder_tpu_torch.ops.quant import QuantizedTensor
 
 
@@ -26,6 +28,10 @@ def named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
         items = enumerate(tree)
     elif isinstance(tree, QuantizedTensor):
         items = (("q", tree.q), ("scale", tree.scale))
+    elif isinstance(tree, LoraWeight):
+        items = (("base", tree.base), ("a", tree.a), ("b", tree.b))
+    elif isinstance(tree, MultiLoraWeight):
+        items = (("base", tree.base), ("a", tree.a), ("b", tree.b), ("idx", tree.idx))
     else:
         yield prefix, tree
         return
