@@ -31,9 +31,18 @@ Phases, in order; any failure exits non-zero:
    and a GQA case with an inactive row and a window across a page), gated on
    the active rows' outputs, every pool page but the scratch page byte-equal
    to the plain version's and the scratch page holding the inactive rows'
-   writes, timed beside the port's unfused route; the fused ViT MLP (K9) at
-   B=3, T=577, Dm=1024, I=4096. Kernels and yardsticks are timed by
-   CUDA-graph replay (SDPA's backward eagerly), the plain versions eagerly.
+   writes, timed beside the port's unfused route; the tower GEMMs' shared
+   mainloop (``csrc/gemm_sm90.cuh``) in one ragged case per epilogue
+   (M=200, N=328, K=328: every edge ragged; the bias epilogue also without
+   a bias); the ViT block (K2) and the fused ViT MLP (K9) at B=3, T=577,
+   Dm=1024, I=4096 (K9 with bf16 and with f32 LN parameters and biases),
+   each launch also timed alone (TFLOP/s beside its bound;
+   ``repack_block`` beside K2). The tower kernels are gated on relative L2
+   (``TOWER_REL_L2``) over the whole output and over its last, ragged
+   64-row tile alone, beside max-abs; the d64 flash case is timed
+   beside SDPA with and without its (all-True) mask. Kernels and yardsticks
+   are timed by CUDA-graph replay (SDPA's backward eagerly), the plain
+   versions eagerly.
 4. Main path at full width: VCoder-DS-7B with seeded random bf16 weights
    (built once, shared with phase 6) serves 3 requests (RGB + seg + depth,
    non-square, made from a numpy seed) through ``process_images``,
@@ -220,6 +229,13 @@ def check_flash(case: dict, report: list) -> None:
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib_ms = graph_ms([lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=bmask, enable_gqa=(H != KH))] * 5)
+    # A boolean mask keeps SDPA off its flash backend: where the mask hides
+    # nothing, time SDPA without one too (the yardstick for that case).
+    nomask = ""
+    if not causal and bool(mask.all()):
+        nomask_ms = graph_ms([lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=(H != KH))] * 5)
+        nomask = f"  sdpa without the mask {nomask_ms:.4f} ms"
     # Work this data needs: each query row against its visible keys.
     np_pos, np_mask = case["np_pos"], case["np_mask"]
     vis = np.broadcast_to(np_mask[:, None, :].astype(bool), (B, T, S))
@@ -231,8 +247,8 @@ def check_flash(case: dict, report: list) -> None:
     nbytes = (2 * B * T * H * D * 2 + 2 * B * n_keys * KH * D * 2 + B * H * T * 4
               + B * T * 4 + B * S * 4)
     b_ms, b_by = bound(flops, nbytes)
-    log(f"  {case['name']}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  "
-        f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    log(f"  {case['name']}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms"
+        f"{nomask}  bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
     if not case.get("report"):
         return
     report.append(dict(name="flash_fwd", route="cuda",
@@ -544,14 +560,96 @@ def phase_k6_faults(layout, ds) -> bool:
     return not failed.pop("sound") and all(failed.values())
 
 
+# The tower GEMMs' gates (K2, K9 and the ragged cases): relative L2 of the
+# whole output and of its last, ragged row tile (the mainloop's 64 rows) on
+# its own, beside max-abs. A stale stage or a wrong descriptor moves whole
+# tiles; bf16 roundings in another f32 order move the relative L2 by ~1e-3.
+TOWER_REL_L2 = 4e-3
+TILE_ROWS = 64
+
+
+def tower_agreement(got, ref) -> dict:
+    """max-abs, relative L2 and the last row tile's relative L2 of ``got``
+    against ``ref``, both viewed as [rows, columns]."""
+    g = got.float().reshape(-1, got.shape[-1])
+    r = ref.float().reshape(-1, ref.shape[-1])
+    rows = g.shape[0]
+    t0 = (rows - 1) // TILE_ROWS * TILE_ROWS
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    return dict(max_abs=(g - r).abs().max().item(), scale=r.abs().max().item(),
+                rel_l2=rel(g, r), tail_rel_l2=rel(g[t0:], r[t0:]), tail_rows=rows - t0,
+                finite=bool(g.isfinite().all()))
+
+
+def check_tower_gates(name: str, got, ref, abs_tol: float) -> dict:
+    a = tower_agreement(got, ref)
+    ok = (a["finite"] and a["max_abs"] <= abs_tol and a["rel_l2"] <= TOWER_REL_L2
+          and a["tail_rel_l2"] <= TOWER_REL_L2)
+    log(f"kernel {name}: max_abs_err {a['max_abs']:.3e} (tol {abs_tol:.3e}, max|ref| "
+        f"{a['scale']:.3f}) rel L2 {a['rel_l2']:.3e}, last {a['tail_rows']}-row tile "
+        f"{a['tail_rel_l2']:.3e} (tol {TOWER_REL_L2}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    return a
+
+
+def _tflops(flops: float, ms: float) -> str:
+    b_ms, _ = bound(flops, 0)
+    return f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, bound {b_ms:.4f} ms)"
+
+
+def check_tower_gemms() -> None:
+    """The shared GEMM mainloop alone, one ragged case per epilogue (and the
+    bias epilogue without a bias): M=200 (the last row tile 8 rows), N=328
+    (the last column tile 72 columns: one 64-column box cut short, two wholly
+    past N), K=328 (not a multiple of the 64-deep stage), against f32
+    products rounded once."""
+    import torch
+
+    from vcoder_tpu_torch.ops import vit_attention as va
+
+    M, N, K = 200, 328, 328
+    rng = np.random.RandomState(7)
+
+    def randn(*shape, s=1.0, dt=torch.bfloat16):
+        return torch.from_numpy((rng.randn(*shape) * s).astype(np.float32)).to("cuda", dt)
+
+    a, w = randn(M, K), randn(K, N, s=0.1)
+    bias, res = randn(N, s=0.5, dt=torch.float32), randn(M, N)
+    bias16 = bias.to(torch.bfloat16)
+    acc = a.float() @ w.float()
+    cases = {
+        "bias": (lambda o: va.launch_gemm_bias(a, w, bias, o), acc + bias),
+        "no bias": (lambda o: va.launch_gemm_bias(a, w, None, o), acc),
+        "bias + quick-GELU": (lambda o: va.launch_mlp_gemm(a, w, bias, None, o, gelu=True),
+                              (acc + bias) * torch.sigmoid(1.702 * (acc + bias))),
+        "residual + bf16 bias": (lambda o: va.launch_mlp_gemm(a, w, bias16, res, o, gelu=False),
+                                 (res.float() + acc) + bias16.float()),
+    }
+    for label, (run, ref) in cases.items():
+        out = torch.full((M, N), float("nan"), dtype=torch.bfloat16, device="cuda")
+        run(out)
+        torch.cuda.synchronize()
+        ref = ref.to(torch.bfloat16)
+        # One bf16 rounding of f32 sums taken in another order: two ulps at
+        # the largest output.
+        check_tower_gates(f"tower GEMM {label} M={M} N={N} K={K}", out, ref,
+                          2.0 ** -7 * max(1.0, ref.float().abs().max().item()))
+
+
 def check_vit_block(report: list) -> None:
     import torch
     import torch.nn.functional as F
 
     from vcoder_tpu_torch.ops import vit_attention as va
+    from vcoder_tpu_torch.ops.flash_attention import launch_flash_fwd
 
     B, T, Dm, H = 3, 577, 1024, 16
     dh = Dm // H
+    M = B * T
     rng = np.random.RandomState(1)
 
     def randn(*shape, s=1.0):
@@ -561,44 +659,57 @@ def check_vit_block(report: list) -> None:
     layer = {n: randn(Dm, Dm, s=0.03) for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
     layer.update({n: randn(Dm, s=0.1) for n in ("q_bias", "k_bias", "v_bias")})
     x = randn(B, T, Dm)
-    wqkv_t, bqkv, wo_t = va.repack_block(layer, H)
-    y = va.fused_block_attention(x, wqkv_t, bqkv, wo_t, n_heads=H)
+    wqkv, bqkv, wo = va.repack_block(layer, H)
+    y = va.fused_block_attention(x, wqkv, bqkv, wo, n_heads=H)
     va.launches = 0  # comparison launches do not count
-    ref = va.fused_block_attention_ref(x, wqkv_t, bqkv, wo_t, n_heads=H)
+    ref = va.fused_block_attention_ref(x, wqkv, bqkv, wo, n_heads=H)
     torch.cuda.synchronize()
-    err = (y.float() - ref.float()).abs().max().item()
-    scale = ref.float().abs().max().item()
-    tol = 2e-2 * max(1.0, scale)  # bf16 rounding of qkv, P and o, relative to |y|
-    ok = err <= tol and torch.isfinite(y.float()).all().item()
-    log(f"kernel vit_block: max_abs_err {err:.3e} (tol {tol:.3e}, max|ref| {scale:.3f}) "
-        f"-> {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit("vit_block: kernels disagree with the plain version")
-    ms = graph_ms([lambda: va.fused_block_attention(x, wqkv_t, bqkv, wo_t, n_heads=H)] * 5)
+    # bf16 rounding of qkv, P and o, relative to |y|.
+    agree = check_tower_gates("vit_block", y, ref,
+                              2e-2 * max(1.0, ref.float().abs().max().item()))
+    ms = graph_ms([lambda: va.fused_block_attention(x, wqkv, bqkv, wo, n_heads=H)] * 5)
     va.launches = 0
-    plain_ms = cuda_ms(lambda: va.fused_block_attention_ref(x, wqkv_t, bqkv, wo_t, n_heads=H),
+    plain_ms = cuda_ms(lambda: va.fused_block_attention_ref(x, wqkv, bqkv, wo, n_heads=H),
                        iters=5)
-    wqkv, wo = wqkv_t.t().contiguous(), wo_t.t().contiguous()
     bq = bqkv.to(torch.bfloat16)
 
     def library():
-        qkv = torch.addmm(bq, x.view(B * T, Dm), wqkv).view(B, T, 3, H, dh)
+        qkv = torch.addmm(bq, x.view(M, Dm), wqkv).view(B, T, 3, H, dh)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         o = F.scaled_dot_product_attention(q, k, v, scale=1.0)
-        return o.transpose(1, 2).reshape(B * T, Dm) @ wo
+        return o.transpose(1, 2).reshape(M, Dm) @ wo
 
     lib_ms = graph_ms([library] * 5)
-    M = B * T
-    flops = 2.0 * M * Dm * 3 * Dm + 4.0 * B * H * T * T * dh + 2.0 * M * Dm * Dm
+    # The three launches apart, each beside its bound and cuBLAS's product.
+    qkv = torch.empty((B, T, 3, H, dh), dtype=torch.bfloat16, device="cuda")
+    va.launch_gemm_bias(x.view(M, Dm), wqkv, bqkv, qkv.view(M, 3 * Dm))
+    o, _ = launch_flash_fwd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], None, None,
+                            causal=False, scale=1.0)
+    out = torch.empty((M, Dm), dtype=torch.bfloat16, device="cuda")
+    qkv_ms = graph_ms([lambda: va.launch_gemm_bias(x.view(M, Dm), wqkv, bqkv,
+                                                   qkv.view(M, 3 * Dm))] * 5)
+    flash_ms = graph_ms([lambda: launch_flash_fwd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                                                  None, None, causal=False, scale=1.0)] * 5)
+    out_ms = graph_ms([lambda: va.launch_gemm_bias(o.view(M, Dm), wo, None, out)] * 5)
+    lib_qkv_ms = graph_ms([lambda: torch.addmm(bq, x.view(M, Dm), wqkv)] * 5)
+    lib_out_ms = graph_ms([lambda: o.view(M, Dm) @ wo] * 5)
+    repack_ms = graph_ms([lambda: va.repack_block(layer, H)] * 5)
+    f_qkv, f_out = 2.0 * M * Dm * 3 * Dm, 2.0 * M * Dm * Dm
+    flops = f_qkv + 4.0 * B * H * T * T * dh + f_out
     nbytes = M * Dm * 2 * 2 + 4 * Dm * Dm * 2 + 3 * Dm * 4
     b_ms, b_by = bound(flops, nbytes)
     log(f"  vit_block: kernels {ms:.4f} ms  plain {plain_ms:.4f} ms  addmm+sdpa+mm {lib_ms:.4f} ms  "
         f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    log(f"    QKV GEMM {_tflops(f_qkv, qkv_ms)}, cuBLAS addmm {lib_qkv_ms:.4f} ms; flash d64 "
+        f"{flash_ms:.4f} ms; out GEMM {_tflops(f_out, out_ms)}, cuBLAS mm {lib_out_ms:.4f} ms; "
+        f"the two GEMMs {_tflops(f_qkv + f_out, qkv_ms + out_ms)}; repack_block {repack_ms:.4f} ms")
     report.append(dict(name="vit_block", route="cuda",
                        source="vcoder_tpu_torch/csrc/gemm_bias.cu",
                        replaces="vcoder_tpu/ops/vit_attention.py:52",
-                       launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, status="ok"))
+                       launches=0, max_abs_err=agree["max_abs"], rel_l2=agree["rel_l2"],
+                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                       gemm_ms=qkv_ms + out_ms, flash_ms=flash_ms, repack_ms=repack_ms,
+                       status="ok"))
 
 
 def _paged_case(name, *, B, window, H, KH, lengths, L=32, layer=17, page=64, quant=False,
@@ -963,17 +1074,20 @@ def check_vit_mlp(report: list) -> None:
     y = va.fused_block_mlp(*args, eps=eps)
     ref = va.fused_block_mlp_ref(*args, eps=eps)
     torch.cuda.synchronize()
-    err = (y.float() - ref.float()).abs().max().item()
-    scale = ref.float().abs().max().item()
     # Both round the normalized row, the GELU output and the result to bf16
     # at the same places; f32 sums in another order may move an
     # intermediate across a rounding boundary.
-    tol = 2e-2 * max(1.0, scale)
-    ok = err <= tol and torch.isfinite(y.float()).all().item()
-    log(f"kernel vit_mlp: max_abs_err {err:.3e} (tol {tol:.3e}, max|ref| {scale:.3f}) "
-        f"-> {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit("vit_mlp: kernels disagree with the plain version")
+    agree = check_tower_gates("vit_mlp", y, ref, 2e-2 * max(1.0, ref.float().abs().max().item()))
+    # The f32 route of the LN kernel and of the epilogues' bias loads: the LN
+    # parameters and biases drawn in f32, off the bf16 grid.
+    def randn32(n, s, c=0.0):
+        return torch.from_numpy((c + rng.randn(n) * s).astype(np.float32)).to("cuda")
+
+    args32 = (x, randn32(Dm, 0.1, 1.0), randn32(Dm, 0.1), fc1, randn32(I, 0.1), fc2,
+              randn32(Dm, 0.1))
+    ref32 = va.fused_block_mlp_ref(*args32, eps=eps)
+    check_tower_gates("vit_mlp, f32 LN parameters and biases", va.fused_block_mlp(*args32, eps=eps),
+                      ref32, 2e-2 * max(1.0, ref32.float().abs().max().item()))
     ms = graph_ms([lambda: va.fused_block_mlp(*args, eps=eps)] * 5)
     plain_ms = cuda_ms(lambda: va.fused_block_mlp_ref(*args, eps=eps), iters=3, warmup=1)
     M = B * T
@@ -985,17 +1099,35 @@ def check_vit_mlp(report: list) -> None:
         return torch.addmm(b2, t, fc2).view(B, T, Dm) + x
 
     lib_ms = graph_ms([library] * 5)
+    # The three launches apart (the bf16 vectors as the wrapper passes them).
+    x2 = x.view(M, Dm)
+    h = torch.empty((M, Dm), dtype=torch.bfloat16, device="cuda")
+    g = torch.empty((M, I), dtype=torch.bfloat16, device="cuda")
+    out = torch.empty((M, Dm), dtype=torch.bfloat16, device="cuda")
+    va.launch_layer_norm(x2, ln_s, ln_b, h, eps)
+    va.launch_mlp_gemm(h, fc1, b1, None, g, gelu=True)
+    ln_ms = graph_ms([lambda: va.launch_layer_norm(x2, ln_s, ln_b, h, eps)] * 5)
+    fc1_ms = graph_ms([lambda: va.launch_mlp_gemm(h, fc1, b1, None, g, gelu=True)] * 5)
+    fc2_ms = graph_ms([lambda: va.launch_mlp_gemm(g, fc2, b2, x2, out, gelu=False)] * 5)
+    lib_fc1_ms = graph_ms([lambda: torch.addmm(b1, h, fc1)] * 5)
+    lib_fc2_ms = graph_ms([lambda: torch.addmm(b2, g, fc2)] * 5)
     va.launches_mlp = 0  # comparison launches do not count
-    flops = 4.0 * M * Dm * I
+    f_gemm = 2.0 * M * Dm * I
+    flops = 2 * f_gemm
     nbytes = 2 * M * Dm * 2 + 2 * Dm * I * 2 + (3 * Dm + I) * 2
     b_ms, b_by = bound(flops, nbytes)
-    log(f"  vit_mlp: kernels {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)  plain {plain_ms:.4f} ms"
+    ln_bound, _ = bound(0, 2 * M * Dm * 2 + 2 * Dm * 4)
+    log(f"  vit_mlp: kernels {_tflops(flops, ms)}  plain {plain_ms:.4f} ms"
         f"  layer_norm + addmm + quick-GELU + addmm + residual {lib_ms:.4f} ms  bound "
         f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    log(f"    LN2 {ln_ms:.4f} ms (byte bound {ln_bound:.4f} ms); fc1 GEMM {_tflops(f_gemm, fc1_ms)}, "
+        f"cuBLAS addmm {lib_fc1_ms:.4f} ms; fc2 GEMM {_tflops(f_gemm, fc2_ms)}, cuBLAS addmm "
+        f"{lib_fc2_ms:.4f} ms")
     report.append(dict(name="vit_mlp", route="cuda", source="vcoder_tpu_torch/csrc/vit_mlp.cu",
                        replaces="vcoder_tpu/ops/vit_attention.py:154", launches=0,
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=lib_ms, status="ok"))
+                       max_abs_err=agree["max_abs"], rel_l2=agree["rel_l2"], ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                       gemm_ms=fc1_ms + fc2_ms, ln_ms=ln_ms, status="ok"))
 
 
 def _copies(t, nbytes: int) -> list:
@@ -1171,6 +1303,7 @@ def phase_kernels(report: list) -> None:
                             dead_row=True, seed=2), report)
     check_flash(_flash_case("flash_fwd d64 bidirectional B=3 T=S=577 H=16",
                             3, 577, 577, 16, 16, 64, causal=False, seed=3), report)
+    check_tower_gemms()
     check_vit_block(report)
     check_vit_mlp(report)
 
@@ -2055,9 +2188,9 @@ def _kernel_class(name: str) -> str:
         return "flash_fwd (port)"
     if "flash_bwd" in name:
         return "flash_bwd (port)"
-    if "gemm_bias" in name:
+    if "gemm_sm90<0" in name:  # the bias epilogue: K2's GEMMs
         return "gemm_bias (port)"
-    if "ln_kernel" in name or "gemm_kernel" in name:
+    if "ln_kernel" in name or "gemm_sm90" in name:
         return "vit_mlp (port)"
     if "paged_attn" in name:
         return "paged_attn (port)"

@@ -22,7 +22,7 @@ from vcoder_tpu.models import vcoder as jvcoder
 from vcoder_tpu.simple_tokenizer import SimpleTokenizer as JTokenizer
 from vcoder_tpu_torch import generation as tgen
 from vcoder_tpu_torch import mm_tokens as ttok
-from vcoder_tpu_torch.builder import load_pretrained_model
+from vcoder_tpu_torch.builder import VCoderForCausalLM, load_pretrained_model
 from vcoder_tpu_torch.checkpoint import from_jax_params, save_pretrained
 from vcoder_tpu_torch.config import VCoderConfig as TConfig
 from vcoder_tpu_torch.simple_tokenizer import SimpleTokenizer as TTokenizer
@@ -96,6 +96,26 @@ def test_greedy_generate_with_stop_keywords_matches_jax(setup):
     np.testing.assert_array_equal(out.num_generated, ref.num_generated)
     assert out.texts == ref.texts
     assert (out.sequences[0, 5:] == setup["jcfg"].text.eos_token_id).all()
+
+
+@pytest.mark.parametrize("kw", [dict(num_beams=4), dict(num_beams=4, length_penalty=0.7),
+                                dict(lookahead=8)], ids=["beams", "beams_length_penalty", "lookahead"])
+def test_generate_refuses_unported_modes(setup, kw):
+    """Beam search and prompt-lookup decoding are not ported: ``generate``
+    raises instead of returning greedy tokens in their place."""
+    model = VCoderForCausalLM(setup["tcfg"], setup["tp"])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        model.generate(setup["ids"], *(torch.from_numpy(p) for p in setup["px"]),
+                       max_new_tokens=MAX_NEW, **kw)
+
+
+def test_generate_with_those_modes_off_matches_jax_greedy(setup):
+    ref = _jax_generate(setup)
+    model = VCoderForCausalLM(setup["tcfg"], setup["tp"])
+    out = model.generate(setup["ids"], *(torch.from_numpy(p) for p in setup["px"]),
+                         max_new_tokens=MAX_NEW, num_beams=1, length_penalty=1.0, lookahead=0)
+    np.testing.assert_array_equal(out.sequences, np.asarray(ref.sequences))
+    np.testing.assert_array_equal(out.num_generated, ref.num_generated)
 
 
 def test_jax_checkpoint_loads_in_port(setup, tmp_path):

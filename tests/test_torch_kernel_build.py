@@ -1,0 +1,43 @@
+"""The kernel libraries' names follow their sources and the headers those
+include, so an edited header is never served by a stale library. No nvcc:
+only the paths are computed, on a copy of ``csrc/``."""
+
+import shutil
+
+from vcoder_tpu_torch.ops import _kernels
+
+
+def _copy_csrc(tmp_path, monkeypatch):
+    src = tmp_path / "csrc"
+    shutil.copytree(_kernels.SRC_DIR, src)
+    monkeypatch.setattr(_kernels, "SRC_DIR", src)
+    return src
+
+
+def test_library_path_follows_an_included_header(tmp_path, monkeypatch):
+    src = _copy_csrc(tmp_path, monkeypatch)
+    before = {n: _kernels._lib_path(n) for n in ("gemm_bias", "vit_mlp", "flash_fwd")}
+    header = src / "gemm_sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _kernels._lib_path(n) for n in before}
+    # Both sources that include the header get new names; one that does not
+    # keeps its own.
+    assert after["gemm_bias"] != before["gemm_bias"]
+    assert after["vit_mlp"] != before["vit_mlp"]
+    assert after["flash_fwd"] == before["flash_fwd"]
+
+
+def test_library_path_follows_nested_includes_and_the_source(tmp_path, monkeypatch):
+    src = _copy_csrc(tmp_path, monkeypatch)
+    (src / "inner.cuh").write_text("// inner\n")
+    header = src / "gemm_sm90.cuh"
+    header.write_text(header.read_text() + '\n#include "inner.cuh"\n')
+    assert _kernels._sources(src / "gemm_bias.cu") == [
+        src / "gemm_bias.cu", src / "gemm_sm90.cuh", src / "inner.cuh"]
+    p0 = _kernels._lib_path("gemm_bias")
+    (src / "inner.cuh").write_text("// inner, edited\n")
+    p1 = _kernels._lib_path("gemm_bias")
+    (src / "gemm_bias.cu").write_text((src / "gemm_bias.cu").read_text() + "\n")
+    p2 = _kernels._lib_path("gemm_bias")
+    assert len({p0, p1, p2}) == 3
+    assert p2.parent == _kernels.BUILD_DIR and p2.name.startswith("libgemm_bias-")

@@ -255,7 +255,7 @@ def _wrapper_calls():
     table, lengths = torch.zeros((2, 2), dtype=torch.int32), torch.ones(2, dtype=torch.int32)
     return {
         "fused_block_attention": lambda: va.fused_block_attention(
-            f(1, 5, 16), f(48, 16), f(48), f(16, 16), n_heads=2),
+            f(1, 5, 16), f(16, 48), f(48), f(16, 16), n_heads=2),
         "carry_paged_attention_multi": lambda: pa.carry_paged_attention_multi(
             f(2, 1, 2, 8), f(1, 3, 2, 8, 8), f(1, 3, 2, 8, 8), table, lengths, 0, window=1),
         "carry_paged_attention_multi_q8": lambda: pa.carry_paged_attention_multi_q8(

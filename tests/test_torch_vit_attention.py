@@ -49,8 +49,9 @@ def test_block_matches_jax_kernel(B, T, H, dh):
         wqkv[0], bqkv[0], wo[0], t_valid=T, n_heads=H, hb=hb, interpret=True,
     )[:, :T]
 
-    wqkv_t, bqkv_t, wo_t = tvit.repack_block({k: torch.from_numpy(v) for k, v in w.items()}, H)
-    out = tvit.fused_block_attention(torch.from_numpy(x), wqkv_t, bqkv_t, wo_t, n_heads=H)
+    tw = tvit.repack_block({k: torch.from_numpy(v) for k, v in w.items()}, H)
+    assert tw[0].shape == (Dm, 3 * Dm) and tw[2].shape == (Dm, Dm)  # [in, out], no transpose
+    out = tvit.fused_block_attention(torch.from_numpy(x), *tw, n_heads=H)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
 
 

@@ -87,8 +87,24 @@ class VCoderForCausalLM:
         tokenizer=None,
         stopping_criteria=None,
         seed: int = 0,
+        lookahead: int = 0,
         **kw,
     ) -> gen_mod.GenerationResult:
+        # Modes the JAX package runs and the port does not yet: refuse them
+        # rather than return greedy tokens in their place.
+        num_beams = kw.get("num_beams") or 1
+        if num_beams > 1:
+            penalty = kw.get("length_penalty")
+            raise NotImplementedError(
+                f"generate: beam search (num_beams={num_beams}"
+                + ("" if penalty is None else f", length_penalty={penalty}")
+                + ") is not ported; use num_beams=1"
+            )
+        if lookahead > 0:
+            raise NotImplementedError(
+                f"generate: prompt-lookup decoding (lookahead={lookahead}) is not ported; "
+                "use lookahead=0"
+            )
         if do_sample is False:
             temperature = 0.0
         elif do_sample and temperature <= 0.0:
@@ -107,7 +123,8 @@ class VCoderForCausalLM:
             tokenizer=tokenizer,
             stopping_criteria=stopping_criteria,
             # Unknown HF-generate kwargs (use_cache, top_k, ...) are accepted
-            # and ignored, like the HF API.
+            # and ignored, like the HF API; so is length_penalty without beams,
+            # as in JAX.
             **{
                 k: v
                 for k, v in kw.items()

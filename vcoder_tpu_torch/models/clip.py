@@ -204,8 +204,8 @@ def _run_blocks_fused(params, cfg, x, n_blocks, *, fuse_mlp: bool = False):
     for l in range(n_blocks):
         lp = _layer(params, l)
         h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], eps)
-        wqkv_t, bqkv, wo_t = repack_block(lp, H)
-        a = fused_block_attention(h, wqkv_t, bqkv, wo_t, n_heads=H)
+        wqkv, bqkv, wo = repack_block(lp, H)
+        a = fused_block_attention(h, wqkv, bqkv, wo, n_heads=H)
         x = x + a + lp["out_bias"]
         if fuse_mlp:
             x = fused_block_mlp(x, lp["ln2_scale"], lp["ln2_bias"], lp["fc1"], lp["fc1_bias"],

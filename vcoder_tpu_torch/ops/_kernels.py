@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for ``sm_90a`` into ``vcoder_tpu_torch/_build/lib<name>-<hash>.so`` (the hash
-is of the source, so a stale library is never loaded). The library is loaded
-with ``ctypes``; every pointer and the stream pass as ``c_void_p`` so ctypes
-never cuts them to 32 bits. Nothing is built at import time: the first call
+is of the source and of the ``csrc`` headers it includes, so a stale library
+is never loaded). The library is loaded with ``ctypes``; every pointer and
+the stream pass as ``c_void_p`` so ctypes never cuts them to 32 bits. Nothing is built at import time: the first call
 that needs a kernel builds it, and :func:`build` builds several sources in
 parallel (one ``nvcc`` process each). A wrapper whose kernel has no backward
 calls :func:`forbid_grad` before launching, so autograd never records an
@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -31,51 +32,45 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
-# C signatures of the entry points (all return the launch's cudaError_t).
+# C signatures of each library's entry points (all return a cudaError_t).
 _SIGNATURES = {
-    "flash_fwd": (
-        "flash_fwd",
-        [_P, _P, _P, _P, _P, _P, _P]  # q k v qpos kvmask o lse
+    "flash_fwd": {
+        "flash_fwd": [_P, _P, _P, _P, _P, _P, _P]  # q k v qpos kvmask o lse
         + [_I] * 6  # B T S H KH D
         + [_L] * 9  # q/k/v batch, token, head strides
         + [_F, _I, _P],  # scale causal stream
-    ),
-    "flash_bwd": (
-        "flash_bwd",
-        [_P] * 11  # q k v dout lse delta qpos kvmask dq dk dv
+    },
+    "flash_bwd": {
+        "flash_bwd": [_P] * 11  # q k v dout lse delta qpos kvmask dq dk dv
         + [_I] * 6  # B T S H KH D
         + [_L] * 12  # q/k/v/dout batch, token, head strides
         + [_F, _I, _P],  # scale causal stream
-    ),
-    "gemm_bias": ("gemm_bias", [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "vit_mlp": (
-        "vit_mlp",
-        [_P] * 10  # x ln_s ln_b fc1 b1 fc2 b2 h g y
-        + [_I] * 3  # M Dm I
-        + [_F, _P],  # eps stream
-    ),
-    "paged_attn": (
-        "paged_attn",
-        [_P] * 8  # q kp vp ks vs table lengths out
+    },
+    "gemm_bias": {"gemm_bias": [_P] * 4 + [_I] * 3 + [_P]},  # A W bias C M N K stream
+    "vit_mlp": {
+        "vit_mlp_ln": [_P] * 4 + [_I, _I, _F, _I, _P],  # x s b h M Dm eps vec_bf16 stream
+        # A W bias bias_bf16 R C M N K epi stream
+        "vit_mlp_gemm": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P],
+    },
+    "paged_attn": {
+        "paged_attn": [_P] * 8  # q kp vp ks vs table lengths out
         + [_P] * 6  # fused: nk nv nks nvs positions active
         + [_I] * 7  # B window H KH n_pages page P_max
         + [_L] * 3  # q batch, token, head strides
         + [_F, _I, _I, _P],  # scale quant fused stream
-    ),
-    "int4_matmul": (
-        "int4_matmul",
-        [_P] * 4  # x qp part out
+    },
+    "int4_matmul": {
+        "int4_matmul": [_P] * 4  # x qp part out
         + [_I] * 3  # B K2 N
         + [_L]  # x row stride
         + [_I] * 3  # splits rows_per_split out_f32
         + [_P],  # stream
-    ),
-    "int8_mm": (
-        "int8_mm",
-        [_P] * 5  # A B sa sb C
+    },
+    "int8_mm": {
+        "int8_mm": [_P] * 5  # A B sa sb C
         + [_I] * 5  # M N K scaled out_kind
         + [_P],  # stream
-    ),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -94,10 +89,29 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(src: Path) -> list:
+    """``src`` and every file of its directory that it includes with
+    ``#include "..."``, directly or through another such file."""
+    seen, todo = [], [src]
+    while todo:
+        p = todo.pop()
+        if p in seen or not p.exists():
+            continue
+        seen.append(p)
+        todo += [src.parent / m.decode() for m in _INCLUDE.findall(p.read_bytes())]
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source and
+    of the headers it includes, so a stale library is never loaded."""
+    h = hashlib.sha1()
+    for p in _sources(SRC_DIR / f"{name}.cu"):
+        h.update(p.name.encode() + b"\0" + p.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def nvcc_command(src: Path, out: Path) -> list:
@@ -141,12 +155,12 @@ def build(names: Iterable[str] = tuple(_SIGNATURES)) -> Dict[str, float]:
 
 def load(name: str, path: Path) -> ctypes.CDLL:
     """The library at ``path``, built from a source with ``csrc/<name>.cu``'s
-    entry point, with that entry point's C signature set."""
+    entry points, with their C signatures set."""
     cdll = ctypes.CDLL(str(path))
-    sym, argtypes = _SIGNATURES[name]
-    fn = getattr(cdll, sym)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for sym, argtypes in _SIGNATURES[name].items():
+        fn = getattr(cdll, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return cdll
 
 
