@@ -39,8 +39,15 @@ Phases, in order; any failure exits non-zero:
    each launch also timed alone (TFLOP/s beside its bound;
    ``repack_block`` beside K2). The tower kernels are gated on relative L2
    (``TOWER_REL_L2``) over the whole output and over its last, ragged
-   64-row tile alone, beside max-abs; the d64 flash case is timed
-   beside SDPA with and without its (all-True) mask. Kernels and yardsticks
+   64-row tile alone, beside max-abs. The flash forward (K1) runs six
+   cases, each gated on max-abs 2e-2 and LSE 1e-3 against
+   ``flash_attention_ref``: the decoder prefill (timed beside SDPA's causal
+   form on its valid rows and beside SDPA with the boolean mask), a GQA case
+   with key holes and a row that sees no key, the tower's d64 case (beside
+   SDPA with and without its all-True mask), positions that are not
+   monotone (a left-padded row, a row permuted within a tile), T and S not
+   multiples of 128 in a cached prefill, and the training step's shape
+   (phase 8's first batch, B=4, T=2048). Kernels and yardsticks
    are timed by CUDA-graph replay (SDPA's backward eagerly), the plain
    versions eagerly.
 4. Main path at full width: VCoder-DS-7B with seeded random bf16 weights
@@ -169,27 +176,37 @@ def phase_build() -> None:
 
 
 def _flash_case(name, B, T, S, H, KH, D, *, causal, n_valid=None, holes=False,
-                dead_row=False, seed=0):
-    """Inputs for one flash-attention comparison; returns a dict."""
+                dead_row=False, layout=None, seed=0):
+    """Inputs for one flash-attention comparison; returns a dict. With
+    ``layout`` (positions [B,T] and key mask [B,S], numpy int32) the rows are
+    those given and q/k/v are drawn on the card (numpy takes seconds for
+    ~100 M normals)."""
     import torch
 
     rng = np.random.RandomState(seed)
     dev = "cuda"
+    if layout is not None:
+        pos, mask = (np.ascontiguousarray(a, np.int32) for a in layout)
+        gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def randn(*shape):
-        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, torch.bfloat16)
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    else:
+        def randn(*shape):
+            return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, torch.bfloat16)
 
     q, k, v = randn(B, T, H, D), randn(B, S, KH, D), randn(B, S, KH, D)
-    n_valid = T if n_valid is None else n_valid
-    pos = np.zeros((B, T), np.int32)
-    pos[:, :n_valid] = np.arange(n_valid) + (S - T if n_valid == T else 0)
-    mask = np.zeros((B, S), np.int32)
-    mask[:, : (pos.max() + 1) if causal else S] = 1
-    if holes:
-        mask[:, rng.rand(S) < 0.2] = 0
-    if dead_row:
-        # Batch row 1, query 0 sees keys 0..pos[1,0]: hide them all.
-        mask[1, : pos[1, 0] + 1] = 0
+    if layout is None:
+        n_valid = T if n_valid is None else n_valid
+        pos = np.zeros((B, T), np.int32)
+        pos[:, :n_valid] = np.arange(n_valid) + (S - T if n_valid == T else 0)
+        mask = np.zeros((B, S), np.int32)
+        mask[:, : (pos.max() + 1) if causal else S] = 1
+        if holes:
+            mask[:, rng.rand(S) < 0.2] = 0
+        if dead_row:
+            # Batch row 1, query 0 sees keys 0..pos[1,0]: hide them all.
+            mask[1, : pos[1, 0] + 1] = 0
     t = lambda a: torch.from_numpy(a).to(dev)
     return dict(name=name, q=q, k=k, v=v, pos=t(pos), mask=t(mask), causal=causal,
                 np_pos=pos, np_mask=mask)
@@ -230,12 +247,21 @@ def check_flash(case: dict, report: list) -> None:
     lib_ms = graph_ms([lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=bmask, enable_gqa=(H != KH))] * 5)
     # A boolean mask keeps SDPA off its flash backend: where the mask hides
-    # nothing, time SDPA without one too (the yardstick for that case).
-    nomask = ""
+    # nothing, time SDPA without one too (the yardstick for that case); where
+    # every row's first n queries sit at positions 0..n-1 over the first n
+    # keys and the rest is padding, SDPA's causal form on those n rows computes
+    # the same function on them (the yardstick for that case).
+    flash_note, flash_ms = "", None
     if not causal and bool(mask.all()):
-        nomask_ms = graph_ms([lambda: F.scaled_dot_product_attention(
+        flash_ms = graph_ms([lambda: F.scaled_dot_product_attention(
             qt, kt, vt, enable_gqa=(H != KH))] * 5)
-        nomask = f"  sdpa without the mask {nomask_ms:.4f} ms"
+        flash_note = f"  sdpa without the mask {flash_ms:.4f} ms"
+    n = _causal_prefix(case)
+    if n:
+        qn, kn, vn = (x[:, :n].transpose(1, 2) for x in (q, k, v))
+        flash_ms = graph_ms([lambda: F.scaled_dot_product_attention(
+            qn, kn, vn, is_causal=True, enable_gqa=(H != KH))] * 5)
+        flash_note = f"  sdpa is_causal on the {n} valid rows {flash_ms:.4f} ms"
     # Work this data needs: each query row against its visible keys.
     np_pos, np_mask = case["np_pos"], case["np_mask"]
     vis = np.broadcast_to(np_mask[:, None, :].astype(bool), (B, T, S))
@@ -248,14 +274,29 @@ def check_flash(case: dict, report: list) -> None:
               + B * T * 4 + B * S * 4)
     b_ms, b_by = bound(flops, nbytes)
     log(f"  {case['name']}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms"
-        f"{nomask}  bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        f"{flash_note}  bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
     if not case.get("report"):
         return
-    report.append(dict(name="flash_fwd", route="cuda",
+    report.append(dict(name=case["report"], route="cuda",
                        source="vcoder_tpu_torch/csrc/flash_fwd.cu",
                        replaces="vcoder_tpu/ops/flash_attention.py:216",
-                       launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, status="ok"))
+                       launches=0, max_abs_err=err, lse_err=lse_err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_ms if flash_ms is None else flash_ms,
+                       library_masked_ms=lib_ms, status="ok"))
+
+
+def _causal_prefix(case: dict) -> int:
+    """n when, in every row of a causal case, queries 0..n-1 sit at positions
+    0..n-1, exactly keys 0..n-1 are valid and the other queries are padding;
+    else 0."""
+    if not case["causal"]:
+        return 0
+    pos, mask = case["np_pos"], case["np_mask"]
+    n = int(mask[0].sum())
+    ok = (0 < n <= pos.shape[1] and (mask[:, :n] == 1).all() and (mask[:, n:] == 0).all()
+          and (pos[:, :n] == np.arange(n)).all())
+    return n if ok else 0
 
 
 def _flash_bwd_case(name, B, T, S, H, KH, *, layout=None, holes=False, dead_row=False, seed=0):
@@ -268,20 +309,8 @@ def _flash_bwd_case(name, B, T, S, H, KH, *, layout=None, holes=False, dead_row=
     :func:`_flash_case`, with ``dout`` drawn on every row."""
     import torch
 
-    if layout is None:
-        case = _flash_case(name, B, T, S, H, KH, 128, causal=True, holes=holes,
-                           dead_row=dead_row, seed=seed)
-    else:
-        pos, mask = (np.ascontiguousarray(a, np.int32) for a in layout)
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-
-        def randn(*shape):
-            return torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
-
-        t = lambda a: torch.from_numpy(a).to("cuda")
-        case = dict(name=name, q=randn(B, T, H, 128), k=randn(B, S, KH, 128),
-                    v=randn(B, S, KH, 128), pos=t(pos), mask=t(mask), causal=True,
-                    np_pos=pos, np_mask=mask)
+    case = _flash_case(name, B, T, S, H, KH, 128, causal=True, holes=holes,
+                       dead_row=dead_row, layout=layout, seed=seed)
     gen = torch.Generator(device="cuda").manual_seed(seed + 100)
     dout = torch.randn(case["q"].shape, generator=gen, device="cuda", dtype=torch.bfloat16)
     if layout is not None:  # T == S: query row t is valid where key t is
@@ -1292,20 +1321,73 @@ def phase_quant_kernels(report: list) -> None:
     i8.reset_launches()
 
 
-def phase_kernels(report: list) -> None:
+def phase_flash_kernels(report: list) -> None:
+    """K1 in five of its six cases (the training shape is
+    :func:`check_flash_training`'s)."""
     # The decoder prefill: T=1280 rows, 1201 valid, a cache of S=1280+32.
     main = _flash_case("flash_fwd causal T=1280 (1201 valid) S=1312 H=KH=32 D=128",
                        1, 1280, 1312, 32, 32, 128, causal=True, n_valid=1201)
-    main["report"] = True
+    main["report"] = "flash_fwd"
     check_flash(main, report)
     check_flash(_flash_case("flash_fwd GQA 8q/2kv, kv_mask holes, a fully-masked row, S>T",
                             2, 200, 333, 8, 2, 128, causal=True, holes=True,
                             dead_row=True, seed=2), report)
     check_flash(_flash_case("flash_fwd d64 bidirectional B=3 T=S=577 H=16",
                             3, 577, 577, 16, 16, 64, causal=False, seed=3), report)
+    for case in _flash_edge_cases():
+        check_flash(case, report)
+
+
+def phase_kernels(report: list) -> None:
+    phase_flash_kernels(report)
     check_tower_gemms()
     check_vit_block(report)
     check_vit_mlp(report)
+
+
+def _flash_edge_cases():
+    """Two causal d128 cases that reach the kernel's per-tile mask decision,
+    its causal loop bound and the ragged TMA edges: positions that are not
+    monotone (row 0 left-padded: 45 hidden pad keys whose queries sit at
+    position 0; row 1 with the positions of its rows 128..255 permuted
+    among themselves), and T and S not multiples of 128 in a cached prefill
+    (positions S-T..S-1, so the key tile 128..255 straddles the first query
+    tile's mask-free boundary; row 1 hides key 5, so its tile 0 is masked
+    while row 0's is not)."""
+    rng = np.random.RandomState(11)
+    T = S = 384
+    pos = np.tile(np.arange(T, dtype=np.int32), (2, 1))
+    mask = np.ones((2, S), np.int32)
+    pos[0, :45], mask[0, :45] = 0, 0
+    pos[1, 128:256] = rng.permutation(np.arange(128, 256, dtype=np.int32))
+    yield _flash_case("flash_fwd non-monotone positions (left pad; a permuted tile) T=S=384 "
+                      "H=8 KH=2", 2, T, S, 8, 2, 128, causal=True, layout=(pos, mask), seed=12)
+    T, S = 300, 437
+    pos = np.tile(np.arange(S - T, S, dtype=np.int32), (2, 1))
+    mask = np.ones((2, S), np.int32)
+    mask[1, 5] = 0
+    yield _flash_case("flash_fwd ragged T=300 S=437 (cached prefill) H=KH=8, a key hole in row 1",
+                      2, T, S, 8, 8, 128, causal=True, layout=(pos, mask), seed=13)
+
+
+def check_flash_training(report: list, layout) -> None:
+    """K1 at the training step's shape: the rows of the first batch phase 8's
+    ``Trainer`` collates (B=4, T=S its bucket, H=KH=32, right-padded rows of
+    different lengths), where K1 runs 64 times a step."""
+    import torch
+
+    from vcoder_tpu_torch.ops import flash_attention as fa
+
+    pos, mask = layout
+    B, T = pos.shape
+    lens = [int(n) for n in np.asarray(mask).sum(axis=1)]
+    case = _flash_case(f"flash_fwd training B={B} T={T} H=KH=32 rows {lens}", B, T, T, 32, 32,
+                       128, causal=True, layout=layout, seed=14)
+    case["report"] = "flash_fwd_train"
+    check_flash(case, report)
+    del case
+    torch.cuda.empty_cache()
+    fa.launches = 0  # comparison launches do not count
 
 
 def _images(rng, h, w):
@@ -2444,6 +2526,7 @@ def main() -> int:
     ds = DSSamples(20, cfg7.vision.image_size)
     layout = training_layout(cfg7, ds)
     lap("kernels")
+    check_flash_training(report, layout)
     phase_flash_bwd_kernels(report, layout)
     lap("kernels_flash_bwd")
     cfg, params, model, tok = build_7b()
@@ -2467,6 +2550,7 @@ def main() -> int:
     launches = {
         "flash_fwd": (main_counts["flash_fwd"] + engine_counts["flash"] + quant_counts["flash"]
                       + train_counts["flash_fwd"]),
+        "flash_fwd_train": train_counts["flash_fwd"],
         "flash_bwd": train_counts["flash_bwd"],
         "vit_block": (main_counts["vit_block"] + engine_counts["vit"] + quant_counts["vit"]
                       + train_counts["vit_block"]),

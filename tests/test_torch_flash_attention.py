@@ -59,6 +59,13 @@ def _case(B, T, S, H, KH, D, *, seed, n_valid=None, holes=False, dead_row=False,
         for b, n in enumerate(n_valid):
             pos[b, :n] = np.arange(n)
             mask[b, :n] = 1
+    elif positions == "non_monotone":
+        # Row 0 left-padded (pad keys hidden, pad queries at position 0);
+        # the other rows with the positions of rows 8..23 permuted.
+        pos = np.broadcast_to(np.arange(T, dtype=np.int32) + (S - T), (B, T)).copy()
+        mask = np.ones((B, S), np.int32)
+        pos[0, :7], mask[0, :7] = 0, 0
+        pos[1:, 8:24] = pos[1:, 8:24][:, rng.permutation(16)]
     else:
         pos = np.broadcast_to(np.arange(T, dtype=np.int32) + (S - T), (B, T)).copy()
         mask = np.ones((B, S), np.int32)
@@ -80,6 +87,8 @@ CASES = {
     "fully_masked_row": (dict(B=2, T=20, S=30, H=2, KH=2, D=8, seed=3, positions="aligned", dead_row=True), True, True),
     # grouped-query attention, 4 query heads per KV pair
     "gqa": (dict(B=2, T=33, S=45, H=4, KH=2, D=16, seed=4, n_valid=[33, 17]), True, True),
+    # positions that are not monotone: a left-padded row, a permuted run
+    "non_monotone": (dict(B=2, T=40, S=40, H=4, KH=2, D=16, seed=7, positions="non_monotone"), True, False),
     # bidirectional with key holes
     "non_causal": (dict(B=2, T=19, S=27, H=4, KH=2, D=8, seed=5, positions="aligned", holes=True), False, False),
 }
@@ -136,3 +145,25 @@ def test_dispatch_matches_jax_xla_attention(T):
         q_positions=torch.from_numpy(pos), kv_mask=torch.from_numpy(mask),
     )
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+def test_sdpa_causal_yardstick_only_for_prefix_rows():
+    """``chip_smoke.py`` times SDPA's causal form beside K1 only where it
+    computes the same function: every row's first n queries at positions
+    0..n-1 over exactly the first n keys, the rest padding."""
+    import chip_smoke
+
+    T, S, n = 48, 56, 40
+    pos = np.zeros((2, T), np.int32)
+    pos[:, :n] = np.arange(n)
+    mask = np.zeros((2, S), np.int32)
+    mask[:, :n] = 1
+    case = dict(causal=True, np_pos=pos, np_mask=mask)
+    assert chip_smoke._causal_prefix(case) == n
+    assert chip_smoke._causal_prefix(dict(case, causal=False)) == 0
+    for edit in (lambda p, m: m.__setitem__((1, 3), 0),          # a key hole
+                 lambda p, m: m.__setitem__((1, n), 1),          # one more key in row 1
+                 lambda p, m: p.__setitem__((0, slice(8, 10)), [9, 8])):  # swapped positions
+        p, m = pos.copy(), mask.copy()
+        edit(p, m)
+        assert chip_smoke._causal_prefix(dict(case, np_pos=p, np_mask=m)) == 0

@@ -33,7 +33,7 @@ def test_library_path_follows_nested_includes_and_the_source(tmp_path, monkeypat
     header = src / "gemm_sm90.cuh"
     header.write_text(header.read_text() + '\n#include "inner.cuh"\n')
     assert _kernels._sources(src / "gemm_bias.cu") == [
-        src / "gemm_bias.cu", src / "gemm_sm90.cuh", src / "inner.cuh"]
+        src / "gemm_bias.cu", src / "gemm_sm90.cuh", src / "inner.cuh", src / "sm90.cuh"]
     p0 = _kernels._lib_path("gemm_bias")
     (src / "inner.cuh").write_text("// inner, edited\n")
     p1 = _kernels._lib_path("gemm_bias")
@@ -41,3 +41,18 @@ def test_library_path_follows_nested_includes_and_the_source(tmp_path, monkeypat
     p2 = _kernels._lib_path("gemm_bias")
     assert len({p0, p1, p2}) == 3
     assert p2.parent == _kernels.BUILD_DIR and p2.name.startswith("libgemm_bias-")
+
+
+def test_library_path_follows_the_shared_hopper_header(tmp_path, monkeypatch):
+    src = _copy_csrc(tmp_path, monkeypatch)
+    names = ("flash_fwd", "gemm_bias", "vit_mlp", "int4_matmul")
+    assert src / "sm90.cuh" in _kernels._sources(src / "flash_fwd.cu")
+    before = {n: _kernels._lib_path(n) for n in names}
+    header = src / "sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _kernels._lib_path(n) for n in names}
+    # flash_fwd.cu includes it directly, the GEMMs through gemm_sm90.cuh; the
+    # int4 kernel includes neither.
+    for n in ("flash_fwd", "gemm_bias", "vit_mlp"):
+        assert after[n] != before[n], n
+    assert after["int4_matmul"] == before["int4_matmul"]
