@@ -22,11 +22,14 @@ Phases, in order; any failure exits non-zero:
    length-0 row, an unstacked pool), the int4 decode matmul at B=1 and B=8
    over the 7B gate/up, down and lm_head weights, the int8 GEMM in both
    forms at the decoder prefill (M=1280) and the tower (M=1731), and the
-   flash backward (K6: the dq and dkv kernels) on the rows of phase 8's first
-   batch (B=4, T=2048, H=KH=32, right-padded, the output gradient 0 on pad
-   rows) and in a GQA case with key-mask holes, a row that sees no key and
-   T < S, gated on relative L2 per gradient and per 64-row tile and on exact
-   zeros where the plain gradient is 0; the fused append + attend (K7) in
+   flash backward (K6: the dq kernel, which also computes delta, then the
+   dkv kernel) on the rows of phase 8's first batch (B=4, T=2048, H=KH=32,
+   right-padded, the output gradient 0 on pad rows), in a GQA case with
+   key-mask holes, a row that sees no key and T < S, and on K1's
+   non-monotone and ragged layouts, gated on relative L2 per gradient and
+   per 64-row tile and on exact zeros where the plain gradient is 0, and
+   timed beside SDPA's causal backward over the first L_max rows and keys
+   (its flash form) and with the boolean mask; the fused append + attend (K7) in
    five cases (bf16 and int8 pools at windows 1 and 4 at the decode shape,
    and a GQA case with an inactive row and a window across a page), gated on
    the active rows' outputs, every pool page but the scratch page byte-equal
@@ -48,7 +51,8 @@ Phases, in order; any failure exits non-zero:
    monotone (a left-padded row, a row permuted within a tile), T and S not
    multiples of 128 in a cached prefill, and the training step's shape
    (phase 8's first batch, B=4, T=2048). Kernels and yardsticks
-   are timed by CUDA-graph replay (SDPA's backward eagerly), the plain
+   are timed by CUDA-graph replay (SDPA's masked backward eagerly, its
+   causal backward by its kernels' device time under the profiler), the plain
    versions eagerly.
 4. Main path at full width: VCoder-DS-7B with seeded random bf16 weights
    (built once, shared with phase 6) serves 3 requests (RGB + seg + depth,
@@ -290,30 +294,44 @@ def _causal_prefix(case: dict) -> int:
     """n when, in every row of a causal case, queries 0..n-1 sit at positions
     0..n-1, exactly keys 0..n-1 are valid and the other queries are padding;
     else 0."""
+    n = _causal_prefix_max(case)
+    return n if n and (case["np_mask"].sum(axis=1) == n).all() else 0
+
+
+def _causal_prefix_max(case: dict) -> int:
+    """L_max, the longest row, when every row of a causal case is a
+    right-padded prefix: its first n queries at positions 0..n-1 over
+    exactly keys 0..n-1 (n may differ between rows), the rest padding; else
+    0. SDPA's causal form over the first L_max rows and keys of every
+    sequence then covers each row's visible pairs (and, in the shorter rows,
+    more)."""
     if not case["causal"]:
         return 0
     pos, mask = case["np_pos"], case["np_mask"]
-    n = int(mask[0].sum())
-    ok = (0 < n <= pos.shape[1] and (mask[:, :n] == 1).all() and (mask[:, n:] == 0).all()
-          and (pos[:, :n] == np.arange(n)).all())
-    return n if ok else 0
+    lens = mask.sum(axis=1)
+    for p, m, n in zip(pos, mask, lens):
+        if not (0 < n <= pos.shape[1] and (m[:n] == 1).all() and (m[n:] == 0).all()
+                and (p[:n] == np.arange(n)).all()):
+            return 0
+    return int(lens.max())
 
 
 def _flash_bwd_case(name, B, T, S, H, KH, *, layout=None, holes=False, dead_row=False, seed=0):
     """Inputs for one flash-backward comparison: causal, D=128, and the
     output gradient ``dout``. With ``layout`` (the positions [B,T] and key
-    mask [B,S] of a training batch, :func:`training_layout`) the rows are
-    the batch's: right-padded, pads at position 0, and ``dout`` is 0 on the
-    pad rows, as the loss leaves it in training; q/k/v are drawn on the card
-    (numpy takes seconds for ~100 M normals). Otherwise the layout of
-    :func:`_flash_case`, with ``dout`` drawn on every row."""
+    mask [B,S] of a training batch, :func:`training_layout`, or of
+    :func:`_flash_edge_layouts`) the rows are those given, and where T == S
+    ``dout`` is 0 on the rows whose own key is hidden (a training batch's
+    right-padded rows at position 0, as the loss leaves them); q/k/v are
+    drawn on the card (numpy takes seconds for ~100 M normals). Otherwise
+    the layout of :func:`_flash_case`, with ``dout`` drawn on every row."""
     import torch
 
     case = _flash_case(name, B, T, S, H, KH, 128, causal=True, holes=holes,
                        dead_row=dead_row, layout=layout, seed=seed)
     gen = torch.Generator(device="cuda").manual_seed(seed + 100)
     dout = torch.randn(case["q"].shape, generator=gen, device="cuda", dtype=torch.bfloat16)
-    if layout is not None:  # T == S: query row t is valid where key t is
+    if layout is not None and T == S:  # query row t is valid where key t is
         dout *= case["mask"][:, :T, None, None].to(dout.dtype)
     case["dout"] = dout
     return case
@@ -384,11 +402,37 @@ def _log_agreement(name: str, agree: dict) -> None:
             f"{r['max_ref']:.3f}) -> {'ok' if r['ok'] else 'FAIL'}")
 
 
+def _device_ms(fn, names: tuple, reps: int = 5) -> dict:
+    """Device ms per call of ``fn`` of each kernel whose name contains one
+    of ``names`` (``""``: every kernel), summed from ``torch.profiler``'s
+    CUDA events over ``reps`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {n: 0.0 for n in names}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for n in names:
+                if n in e.name:
+                    out[n] += e.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
 def check_flash_bwd(case: dict, report: list) -> None:
     """K6 against its plain version on one case: dq, dk and dv of the
     backward pair (the dq kernel, then the dkv kernel) under the gates of
     :func:`flash_bwd_agreement`; with ``case["report"]`` also the pair's
-    time, the plain version's, and SDPA's backward."""
+    time, each kernel's under the profiler, the plain version's, the plain
+    delta pass the dq kernel replaced, and SDPA's backward in its flash form
+    (``is_causal`` over the first L_max rows and keys) and with the boolean
+    mask."""
     import torch
     import torch.nn.functional as F
 
@@ -411,17 +455,39 @@ def check_flash_bwd(case: dict, report: list) -> None:
     if not case.get("report"):
         return
     ms = graph_ms([run] * 3)
+    split = _device_ms(run, ("flash_bwd_dq", "flash_bwd_dkv"))
+    # The plain-torch delta the dq kernel's prologue replaced (four launches).
+    delta_torch_ms = cuda_ms(
+        lambda: (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous(), iters=10)
     plain_ms = cuda_ms(lambda: fa.flash_bwd_ref(q, k, v, out, lse, dout, pos, mask, causal=True),
                        iters=2, warmup=1)
-    # Yardstick: SDPA's backward on the same inputs, boolean mask, timed only.
+    # Yardsticks, timed only: SDPA's backward on the same inputs with the
+    # boolean mask (which keeps SDPA off its flash backend), and where the
+    # rows are right-padded prefixes, its flash form: is_causal over the
+    # first L_max rows and keys of every sequence.
     kpos = torch.arange(S, device="cuda")
     bmask = (mask[:, None, :].bool() & (kpos[None, None, :] <= pos[:, :, None]))[:, None]
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bmask, enable_gqa=(H != KH))
     do_t = dout.transpose(1, 2)
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True),
-                     iters=3, warmup=1)
+    lib_masked_ms = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True),
+                            iters=3, warmup=1)
     del o, qt, kt, vt
+    lib_ms, flash_note = lib_masked_ms, ""
+    n = _causal_prefix_max(case)
+    if n:
+        qn, kn, vn = (x[:, :n].transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        o = F.scaled_dot_product_attention(qn, kn, vn, is_causal=True, enable_gqa=(H != KH))
+        do_n = dout[:, :n].transpose(1, 2)
+        # Its kernels' device time: timed eagerly, the call read 0.43 to
+        # 1.24 ms across runs (the host enqueues its kernels slower than
+        # they run).
+        lib_ms = _device_ms(
+            lambda: torch.autograd.grad(o, (qn, kn, vn), do_n, retain_graph=True), ("",), 10)[""]
+        del o, qn, kn, vn
+        flash_note = (f"  sdpa backward is_causal on the first {n} rows and keys of every "
+                      f"sequence (the flash form; a superset of each row's visible pairs; its "
+                      f"kernels' device time) {lib_ms:.4f} ms")
     # Work these inputs need: five 2*D products over each visible (query,
     # key) pair of each head; q, k, v, out, dout, lse, positions and mask
     # read once, dq, dk and dv written once.
@@ -432,8 +498,10 @@ def check_flash_bwd(case: dict, report: list) -> None:
     nbytes = (2 * 4 * (B * T * H * D + B * S * KH * D)  # q out dout dq, k v dk dv
               + B * H * T * 4 + B * T * 4 + B * S * 4)
     b_ms, b_by = bound(flops, nbytes)
-    log(f"  {case['name']}: kernels {ms:.4f} ms  plain "
-        f"{plain_ms:.4f} ms  sdpa backward {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
+    log(f"  {case['name']}: kernels {ms:.4f} ms (under the profiler: dq with delta "
+        f"{split['flash_bwd_dq']:.4f}, dkv {split['flash_bwd_dkv']:.4f}; the plain-torch delta "
+        f"it replaced {delta_torch_ms:.4f})  plain {plain_ms:.4f} ms  sdpa backward with the "
+        f"boolean mask {lib_masked_ms:.4f} ms{flash_note}  bound {b_ms:.4f} ms ({b_by}; "
         f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB)")
     report.append(dict(name="flash_bwd", route="cuda",
                        source="vcoder_tpu_torch/csrc/flash_bwd.cu",
@@ -441,12 +509,16 @@ def check_flash_bwd(case: dict, report: list) -> None:
                        launches=0,
                        max_abs_err=max(agree[nm]["max_abs_err"] for nm in ("dq", "dk", "dv")),
                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=lib_ms, status="ok"))
+                       library_ms=lib_ms, library_masked_ms=lib_masked_ms,
+                       dq_ms=split["flash_bwd_dq"], dkv_ms=split["flash_bwd_dkv"],
+                       delta_torch_ms=delta_torch_ms, status="ok"))
 
 
 def _k6_cases(layout):
-    """Phase 3's two K6 cases: the training step's first batch (``layout``)
-    and the GQA case."""
+    """Phase 3's four K6 cases: the training step's first batch (``layout``),
+    the GQA case, and K1's two edge layouts (non-monotone positions; ragged
+    T and S with a key hole), which reach both sides of the mask-free and
+    skip decisions of both kernels."""
     pos, mask = layout
     B, T = pos.shape
     lens = [int(n) for n in np.asarray(mask).sum(axis=1)]
@@ -454,13 +526,17 @@ def _k6_cases(layout):
                           layout=layout, seed=5)
     yield _flash_bwd_case("flash_bwd GQA 32q/8kv, kv_mask holes, a fully-masked row, S>T",
                           2, 200, 333, 32, 8, holes=True, dead_row=True, seed=6)
+    for seed, (label, H, KH, (p, m)) in zip((7, 8), _flash_edge_layouts()):
+        yield _flash_bwd_case(f"flash_bwd {label}", p.shape[0], p.shape[1], m.shape[1], H, KH,
+                              layout=(p, m), seed=seed)
 
 
 def phase_flash_bwd_kernels(report: list, layout) -> None:
     """K6 against its plain version at the training step's shape -- the
     rows of the first batch phase 8's ``Trainer`` collates (B=4, T its
-    bucket, H=KH=32, right-padded rows of different lengths) -- and in a GQA
-    case (H=32, KH=8) with key-mask holes, a row that sees no key and T < S."""
+    bucket, H=KH=32, right-padded rows of different lengths) -- in a GQA
+    case (H=32, KH=8) with key-mask holes, a row that sees no key and T < S,
+    and on K1's non-monotone and ragged layouts."""
     import torch
 
     from vcoder_tpu_torch.ops import flash_attention as fa
@@ -477,17 +553,22 @@ def phase_flash_bwd_kernels(report: list, layout) -> None:
 # replaces one line of the source. The K6 gates must fail every one.
 K6_FAULTS = {
     "dkv skips query tile 1": (
-        "if (!__syncthreads_or(sees)) continue;",
-        "if (!__syncthreads_or(sees) || q0 == BQ) continue;"),
-    "dkv skips the diagonal query tile of the key tiles from 1024 on": (
-        "if (!__syncthreads_or(sees)) continue;",
-        "if (!__syncthreads_or(sees) || (kv0 >= 1024 && q0 == kv0)) continue;"),
+        "const bool tile_seen = __any_sync(0xffffffffu, ok);",
+        "const bool tile_seen = __any_sync(0xffffffffu, ok) && tile != 1;"),
+    "dkv skips the diagonal query tiles of the key blocks from 1024 on": (
+        "const bool tile_seen = __any_sync(0xffffffffu, ok);",
+        "const bool tile_seen = __any_sync(0xffffffffu, ok) && !(kv0 >= 1024 && "
+        "tile * L::BQ >= kv0 && tile * L::BQ < kv0 + L::BK);"),
     "dkv drops each key's own query row (< for <=)": (
-        "(!causal || kv0 + kl <= pos_s[ql])",
-        "(!causal || kv0 + kl < pos_s[ql])"),
+        "const bool ok = kok[e >> 1] && (!causal || key[e >> 1] <= pc[e & 1]);",
+        "const bool ok = kok[e >> 1] && (!causal || key[e >> 1] < pc[e & 1]);"),
     "dq skips key tile 1": (
-        "for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {",
-        "for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {\n    if (kv0 == BK) continue;"),
+        "*reinterpret_cast<uint4*>(m) = make_uint4(w0, w1, (w0 & w1) == 0xffffffffu, 0u);",
+        "*reinterpret_cast<uint4*>(m) = make_uint4(j == 1 ? 0u : w0, j == 1 ? 0u : w1, "
+        "j != 1 && (w0 & w1) == 0xffffffffu, 0u);"),
+    "dq judges a key tile mask-free one tile early": (
+        "const bool clean = mw[2] != 0 && (!causal || kv0 + L::BK - 1 <= warp_min);",
+        "const bool clean = mw[2] != 0 && (!causal || kv0 - 1 <= warp_min);"),
 }
 
 
@@ -1345,9 +1426,10 @@ def phase_kernels(report: list) -> None:
     check_vit_mlp(report)
 
 
-def _flash_edge_cases():
-    """Two causal d128 cases that reach the kernel's per-tile mask decision,
-    its causal loop bound and the ragged TMA edges: positions that are not
+def _flash_edge_layouts():
+    """(label, H, KH, (positions [B,T], key mask [B,S])) of two causal
+    layouts that reach the kernels' per-tile mask decisions, their causal
+    bounds and skips, and the ragged TMA edges: positions that are not
     monotone (row 0 left-padded: 45 hidden pad keys whose queries sit at
     position 0; row 1 with the positions of its rows 128..255 permuted
     among themselves), and T and S not multiples of 128 in a cached prefill
@@ -1360,14 +1442,20 @@ def _flash_edge_cases():
     mask = np.ones((2, S), np.int32)
     pos[0, :45], mask[0, :45] = 0, 0
     pos[1, 128:256] = rng.permutation(np.arange(128, 256, dtype=np.int32))
-    yield _flash_case("flash_fwd non-monotone positions (left pad; a permuted tile) T=S=384 "
-                      "H=8 KH=2", 2, T, S, 8, 2, 128, causal=True, layout=(pos, mask), seed=12)
+    yield ("non-monotone positions (left pad; a permuted tile) T=S=384 H=8 KH=2", 8, 2,
+           (pos, mask))
     T, S = 300, 437
     pos = np.tile(np.arange(S - T, S, dtype=np.int32), (2, 1))
     mask = np.ones((2, S), np.int32)
     mask[1, 5] = 0
-    yield _flash_case("flash_fwd ragged T=300 S=437 (cached prefill) H=KH=8, a key hole in row 1",
-                      2, T, S, 8, 8, 128, causal=True, layout=(pos, mask), seed=13)
+    yield ("ragged T=300 S=437 (cached prefill) H=KH=8, a key hole in row 1", 8, 8, (pos, mask))
+
+
+def _flash_edge_cases():
+    """K1 on the two layouts of :func:`_flash_edge_layouts`."""
+    for seed, (label, H, KH, (pos, mask)) in zip((12, 13), _flash_edge_layouts()):
+        yield _flash_case(f"flash_fwd {label}", pos.shape[0], pos.shape[1], mask.shape[1], H, KH,
+                          128, causal=True, layout=(pos, mask), seed=seed)
 
 
 def check_flash_training(report: list, layout) -> None:

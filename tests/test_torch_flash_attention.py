@@ -167,3 +167,34 @@ def test_sdpa_causal_yardstick_only_for_prefix_rows():
         p, m = pos.copy(), mask.copy()
         edit(p, m)
         assert chip_smoke._causal_prefix(dict(case, np_pos=p, np_mask=m)) == 0
+
+
+def test_k6_flash_yardstick_takes_the_longest_right_padded_row():
+    """``chip_smoke.py`` times SDPA's causal backward beside K6 over the
+    first L_max rows and keys of every sequence only where each row is a
+    right-padded prefix (queries 0..n-1 at positions 0..n-1 over exactly keys
+    0..n-1, n per row), L_max the longest such row."""
+    import chip_smoke
+
+    T, lens = 64, [50, 57, 41]
+    pos = np.zeros((3, T), np.int32)
+    mask = np.zeros((3, T), np.int32)
+    for b, n in enumerate(lens):
+        pos[b, :n] = np.arange(n)
+        mask[b, :n] = 1
+    case = dict(causal=True, np_pos=pos, np_mask=mask)
+    assert chip_smoke._causal_prefix_max(case) == 57
+    assert chip_smoke._causal_prefix_max(dict(case, causal=False)) == 0
+    # More keys than queries, the extra ones hidden: the same prefixes.
+    wide = np.concatenate([mask, np.zeros((3, 8), np.int32)], axis=1)
+    assert chip_smoke._causal_prefix_max(dict(case, np_mask=wide)) == 57
+    # Rows of different lengths are not K1's (one length) yardstick.
+    assert chip_smoke._causal_prefix(case) == 0
+    for edit in (lambda p, m: m.__setitem__((1, 3), 0),          # a key hole
+                 lambda p, m: m.__setitem__((2, 45), 1),         # a key past row 2's prefix
+                 lambda p, m: p.__setitem__((0, slice(8, 10)), [9, 8]),  # swapped positions
+                 lambda p, m: (m.__setitem__((0, slice(0, 5)), 0),   # a left-padded row
+                               m.__setitem__((0, slice(50, 55)), 1))):
+        p, m = pos.copy(), mask.copy()
+        edit(p, m)
+        assert chip_smoke._causal_prefix_max(dict(case, np_pos=p, np_mask=m)) == 0

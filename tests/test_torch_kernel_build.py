@@ -56,3 +56,28 @@ def test_library_path_follows_the_shared_hopper_header(tmp_path, monkeypatch):
     for n in ("flash_fwd", "gemm_bias", "vit_mlp"):
         assert after[n] != before[n], n
     assert after["int4_matmul"] == before["int4_matmul"]
+
+
+def test_backward_library_path_follows_the_shared_hopper_header(tmp_path, monkeypatch):
+    src = _copy_csrc(tmp_path, monkeypatch)
+    assert src / "sm90.cuh" in _kernels._sources(src / "flash_bwd.cu")
+    before = {n: _kernels._lib_path(n) for n in ("flash_bwd", "paged_attn")}
+    header = src / "sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    # The backward includes it; the paged kernel does not.
+    assert _kernels._lib_path("flash_bwd") != before["flash_bwd"]
+    assert _kernels._lib_path("paged_attn") == before["paged_attn"]
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Each entry point's argument list in ``_SIGNATURES`` has as many
+    arguments as its ``extern "C"`` definition in ``csrc/<name>.cu``: ctypes
+    would pass a shifted list silently."""
+    import re
+
+    for name, syms in _kernels._SIGNATURES.items():
+        text = (_kernels.SRC_DIR / f"{name}.cu").read_text()
+        for sym, argtypes in syms.items():
+            m = re.search(r'extern "C" int ' + sym + r"\(([^)]*)\)", text)
+            assert m is not None, (name, sym)
+            assert len(m.group(1).split(",")) == len(argtypes), (name, sym)

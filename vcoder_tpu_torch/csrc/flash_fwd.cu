@@ -103,24 +103,6 @@ struct Smem {
   static constexpr int BYTES = 1024 + BARS + (2 * STAGES + 1) * 8;  // 1 KB of alignment slack
 };
 
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
-}
-
-// Eight bf16 scaled in f32 and rounded back.
-__device__ __forceinline__ uint4 scale8(uint4 v, float scale) {
-  uint32_t* w = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    w[i] = pack_bf16(f.x * scale, f.y * scale);
-  }
-  return v;
-}
 
 // S = Q K^T for one key tile (overwriting s): both operands K-major in
 // shared memory; 16 of D are 32 bytes along a box's 128-byte rows.

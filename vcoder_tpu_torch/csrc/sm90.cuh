@@ -4,9 +4,10 @@
 // barriers, and on the host the tensor-map encoder (found through the
 // runtime, so no library links the driver) and the per-device SM count.
 //
-// Included by gemm_sm90.cuh (the tower GEMMs' mainloop) and flash_fwd.cu
-// (the flash-attention forward). A library's name hashes its source and the
-// headers it includes (ops/_kernels.py), so an edit here rebuilds both.
+// Included by gemm_sm90.cuh (the tower GEMMs' mainloop), flash_fwd.cu and
+// flash_bwd.cu (the flash-attention forward and backward). A library's name
+// hashes its source and the headers it includes (ops/_kernels.py), so an
+// edit here rebuilds all of them.
 
 #pragma once
 
@@ -203,6 +204,28 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[64 x 64] (+)= A[64 x 16] @ B[16 x 64], both from shared memory and
+// K-major (trans-b 0); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d[64 x 128] += A[64 x 16] @ B[16 x 128], A from registers (the m16n8k16
 // A fragment of each warp's 16 rows), B from shared memory MN-major (trans-b 1).
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
@@ -255,6 +278,27 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Keeps the compiler from moving reads or writes of register A fragments
+// across the asynchronous wgmma region.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// Eight bf16 scaled in f32 and rounded back.
+__device__ __forceinline__ uint4 scale8(uint4 v, float scale) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    w[i] = pack_bf16(f.x * scale, f.y * scale);
+  }
+  return v;
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

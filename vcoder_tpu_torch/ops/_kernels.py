@@ -41,9 +41,10 @@ _SIGNATURES = {
         + [_F, _I, _P],  # scale causal stream
     },
     "flash_bwd": {
-        "flash_bwd": [_P] * 11  # q k v dout lse delta qpos kvmask dq dk dv
+        # q k v out dout lse delta qs qpos kvmask dq dk dv (delta, qs: scratch)
+        "flash_bwd": [_P] * 13
         + [_I] * 6  # B T S H KH D
-        + [_L] * 12  # q/k/v/dout batch, token, head strides
+        + [_L] * 15  # q/k/v/out/dout batch, token, head strides
         + [_F, _I, _P],  # scale causal stream
     },
     "gemm_bias": {"gemm_bias": [_P] * 4 + [_I] * 3 + [_P]},  # A W bias C M N K stream
@@ -115,11 +116,12 @@ def _lib_path(name: str) -> Path:
 
 
 def nvcc_command(src: Path, out: Path) -> list:
-    """The nvcc command line that builds ``src`` into the library ``out``."""
+    """The nvcc command line that builds ``src`` into the library ``out``;
+    a copy of a source outside ``csrc`` still finds the ``csrc`` headers."""
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(out), str(src),
+        "-I", str(SRC_DIR), "-o", str(out), str(src),
     ]
 
 

@@ -273,9 +273,11 @@ def launch_flash_bwd(
     scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels on CUDA tensors (no counting; see
-    :func:`flash_bwd`). q/k/v/dout may be strided views (head dim
-    contiguous); a dout the kernels cannot read (the gradient of a reshape
-    may arrive with any strides) is made contiguous first."""
+    :func:`flash_bwd`). q/k/v/out/dout may be strided views (head dim
+    contiguous); a dout or out the kernels cannot read (the gradient of a
+    reshape may arrive with any strides) is made contiguous first. The dq
+    kernel computes ``delta = rowsum(dO * O)`` itself and writes it, with q
+    scaled and rounded, to scratch the dkv kernel reads."""
     B, T, H, D = q.shape
     S, KH = k.shape[1], k.shape[2]
     if D != 128:
@@ -286,20 +288,23 @@ def launch_flash_bwd(
         raise ValueError("flash_bwd: dout/out must be [B,T,H,D] and lse [B,H,T]")
     if dout.dtype == torch.bfloat16 and not _operand_ok(dout):
         dout = dout.contiguous()
-    for name, x in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+    if out.dtype == torch.bfloat16 and not _operand_ok(out):
+        out = out.contiguous()
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)):
         if x.device != q.device:
             raise ValueError(f"flash_bwd: {name} is on {x.device}, q on {q.device}")
         _check_operand(name, x, "flash_bwd")
     q_positions, kv_mask = _kernel_masks(B, T, S, q_positions, kv_mask, causal, q.device)
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     lse = lse.to(device=q.device, dtype=torch.float32).contiguous()
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    qs = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, S, KH, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, S, KH, D), dtype=v.dtype, device=q.device)
     fn = _kernels.lib("flash_bwd").flash_bwd
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), qs.data_ptr(),
         None if q_positions is None else q_positions.data_ptr(),
         None if kv_mask is None else kv_mask.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -307,6 +312,7 @@ def launch_flash_bwd(
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
+        out.stride(0), out.stride(1), out.stride(2),
         dout.stride(0), dout.stride(1), dout.stride(2),
         float(scale), int(causal), _kernels.stream_handle(q.device),
     )
