@@ -21,7 +21,9 @@ Phases, in order; any failure exits non-zero:
    decode, a verify window of 4, a 128-token chunk window, GQA with a
    length-0 row, an unstacked pool), the int4 decode matmul at B=1 and B=8
    over the 7B gate/up, down and lm_head weights, the int8 GEMM in both
-   forms at the decoder prefill (M=1280) and the tower (M=1731), and the
+   forms at the six W8A8 prefill shapes and a ragged one (the s32 form
+   exact, the scaled form within one bf16 rounding; timed beside
+   ``torch._int_mm`` on the weight as stored and on a K-major copy), and the
    flash backward (K6: the dq kernel, which also computes delta, then the
    dkv kernel) on the rows of phase 8's first batch (B=4, T=2048, H=KH=32,
    right-padded, the output gradient 0 on pad rows), in a GQA case with
@@ -75,7 +77,7 @@ Phases, in order; any failure exits non-zero:
    ``int4_matmul`` launches per decode step plus 1 per prefill, no ViT
    block; engine D (int4 weights, bf16 pools) and E (int8 weights, int8
    pools) on engine A's traffic, gated on the same counts per admission
-   and per decode step.
+   and per decode step; each engine's tokens are logged as a digest.
 8. Training at full width: VCoder-DS-7B's stage-3 adapters (seg and depth
    projectors, ``vcoder_lm_emb``) trained over the phase-4 bf16 base
    through ``Trainer``: 4 steps of B=4 over 20 in-memory DS samples,
@@ -112,6 +114,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -1323,38 +1326,86 @@ def check_int4(B: int, K: int, N: int, report) -> None:
                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, status="ok"))
 
 
-def check_int8(M: int, K: int, N: int, report) -> None:
-    """K10 in both forms against their plain versions at a W8A8 shape."""
+# K10's cases: the six W8A8 products of a quantized prefill (the 7B
+# decoder's q/k/v/o, gate/up and down at 1280 rows; the CLIP tower's
+# q/k/v/out, fc1 and fc2 at 3 x 577 rows), then a ragged case that no tile
+# divides (M, K and N past a tile edge).
+INT8_CASES = (
+    ("decoder q/k/v/o", 1280, 4096, 4096),
+    ("decoder gate/up", 1280, 4096, 11008),
+    ("decoder down", 1280, 11008, 4096),
+    ("tower q/k/v/out", 1731, 1024, 1024),
+    ("tower fc1", 1731, 1024, 4096),
+    ("tower fc2", 1731, 4096, 1024),
+    ("ragged", 333, 1040, 1200),
+)
+INT8_MAIN = (1280, 4096, 11008)
+
+
+def int8_operands(M: int, K: int, N: int):
+    """Seeded int8 ``a [M, K]``, ``b [K, N]`` and f32 scales on the card. The
+    operands are the first elements of larger random buffers, so whatever a
+    kernel reads past K, M or N is random, not zero."""
+    import torch
+
+    rng = np.random.RandomState(M + K + N)
+    gen = torch.Generator(device="cuda").manual_seed(M + K)
+    tail = 128 * max(K, N) + 256
+
+    def block(rows, cols):
+        buf = torch.randint(-127, 128, (rows * cols + tail,), generator=gen, device="cuda",
+                            dtype=torch.int8)
+        return buf[:rows * cols].view(rows, cols)
+
+    a, b = block(M, K), block(K, N)
+    sa = torch.from_numpy((rng.rand(M, 1) * 0.02 + 1e-3).astype(np.float32)).cuda()
+    sb = torch.from_numpy((rng.rand(1, N) * 0.002 + 1e-4).astype(np.float32)).cuda()
+    return a, b, sa, sb
+
+
+def int8_agreement(a, b, sa, sb) -> dict:
+    """K10 in both forms on one case against the plain versions: the s32
+    form's max-abs error (exact: 0) and the scaled form's max-abs and
+    largest relative error (one bf16 rounding: 2**-8), and whether both
+    hold."""
     import torch
 
     from vcoder_tpu_torch.ops import int8_matmul as i8
 
-    rng = np.random.RandomState(M + K + N)
-    gen = torch.Generator(device="cuda").manual_seed(M + K)
-    a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
-    b = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
-    sa = torch.from_numpy((rng.rand(M, 1) * 0.02 + 1e-3).astype(np.float32)).cuda()
-    sb = torch.from_numpy((rng.rand(1, N) * 0.002 + 1e-4).astype(np.float32)).cuda()
     c = i8.launch_int8_mm(a, b)
-    c_ref = i8.int8_mm_ref(a, b)
     y = i8.launch_int8_mm_scaled(a, b, sa, sb)
-    y_ref = i8.int8_mm_scaled_ref(a, b, sa, sb)
     torch.cuda.synchronize()
-    err_s32 = (c.long() - c_ref.long()).abs().max().item()
+    err_s32 = (c.long() - i8.int8_mm_ref(a, b).long()).abs().max().item()
+    y_ref = i8.int8_mm_scaled_ref(a, b, sa, sb)
     diff = (y.float() - y_ref.float()).abs()
-    err_scaled = diff.max().item()
     # The s32 product is exact; the scaled form rounds the same f32 products
     # once to bf16, so it may differ from the plain version by at most one
     # bf16 rounding (2**-8 of the value).
-    ulps = (diff / y_ref.float().abs().clamp_min(1e-30)).max().item()
-    ok = err_s32 == 0 and ulps <= 2.0 ** -8 and torch.isfinite(y.float()).all().item()
-    name = f"M={M} K={K} N={N}"
-    log(f"kernel int8_mm {name}: s32 max_abs_err {err_s32} (tol 0); int8_mm_scaled bf16 "
-        f"max_abs_err {err_scaled:.3e}, max relative {ulps:.3e} (tol 2^-8) "
-        f"-> {'ok' if ok else 'FAIL'}")
-    if not ok:
+    rel = (diff / y_ref.float().abs().clamp_min(1e-30)).max().item()
+    return dict(err_s32=err_s32, err_scaled=diff.max().item(), rel_scaled=rel,
+                bit_equal=bool(torch.equal(y, y_ref)),
+                ok=err_s32 == 0 and rel <= 2.0 ** -8 and bool(torch.isfinite(y.float()).all()))
+
+
+def check_int8(label: str, M: int, K: int, N: int, report) -> None:
+    """K10 in both forms against their plain versions at one case, timed
+    beside ``torch._int_mm`` on the N-major weight (the library column) and
+    on a K-major copy of it made outside the timed call (what cuBLASLt does
+    when the layout suits it)."""
+    import torch
+
+    from vcoder_tpu_torch.ops import int8_matmul as i8
+
+    a, b, sa, sb = int8_operands(M, K, N)
+    agree = int8_agreement(a, b, sa, sb)
+    name = f"{label} M={M} K={K} N={N}"
+    log(f"kernel int8_mm {name}: s32 max_abs_err {agree['err_s32']} (tol 0); int8_mm_scaled "
+        f"bf16 max_abs_err {agree['err_scaled']:.3e}, max relative {agree['rel_scaled']:.3e} "
+        f"(tol 2^-8), bit-equal {agree['bit_equal']} -> {'ok' if agree['ok'] else 'FAIL'}")
+    if not agree["ok"]:
         raise SystemExit(f"int8_mm {name}: kernel disagrees with its plain version")
     ops = 2.0 * M * K * N
+    bt = b.t().contiguous()
     for form, run, plain, out_bytes in (
         ("int8_mm", lambda: i8.launch_int8_mm(a, b), lambda: i8.int8_mm_ref(a, b), 4),
         ("int8_mm_scaled", lambda: i8.launch_int8_mm_scaled(a, b, sa, sb),
@@ -1364,42 +1415,55 @@ def check_int8(M: int, K: int, N: int, report) -> None:
         plain_ms = cuda_ms(plain, iters=3, warmup=1)
         if form == "int8_mm":
             lib_ms = graph_ms([lambda: torch._int_mm(a, b)] * 5)
+            kmaj_ms = graph_ms([lambda: torch._int_mm(a, bt.t())] * 5)
         else:
             lib_ms = graph_ms(
                 [lambda: (torch._int_mm(a, b).float() * sa * sb).to(torch.bfloat16)] * 5)
+            kmaj_ms = graph_ms(
+                [lambda: (torch._int_mm(a, bt.t()).float() * sa * sb).to(torch.bfloat16)] * 5)
         nbytes = M * K + K * N + M * N * out_bytes + (4 * (M + N) if out_bytes == 2 else 0)
         b_ms, b_by = bound(ops, nbytes, PEAK_INT8_OPS)
+        epi = " + epilogue" if out_bytes == 2 else ""
         log(f"  {form} {name}: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s)  plain "
-            f"{plain_ms:.4f} ms  torch._int_mm{' + epilogue' if out_bytes == 2 else ''} "
-            f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; {ops / 1e9:.1f} GOP at 1979 TOP/s, "
-            f"{nbytes / 1e6:.1f} MB)")
+            f"{plain_ms:.4f} ms  torch._int_mm{epi} {lib_ms:.4f} ms  torch._int_mm on a "
+            f"K-major copy{epi} {kmaj_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
+            f"{ops / 1e9:.1f} GOP at 1979 TOP/s, {nbytes / 1e6:.1f} MB)")
         if report is not None:
             report.append(dict(
                 name=form, route="cuda", source="vcoder_tpu_torch/csrc/int8_mm.cu",
                 replaces=("scripts/bench_int8_matmul.py:76" if form == "int8_mm"
                           else "scripts/bench_int8_matmul.py:92"),
-                launches=0, max_abs_err=float(err_s32 if form == "int8_mm" else err_scaled),
+                launches=0,
+                max_abs_err=float(agree["err_s32"] if form == "int8_mm" else agree["err_scaled"]),
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                 status="ok"))
-    del a, b, c, c_ref, y, y_ref
+    del a, b, bt
     torch.cuda.empty_cache()
 
 
 def phase_quant_kernels(report: list) -> None:
     """K5 and K10 against their plain versions at the quantized path's
     shapes: int4 decode at B=1 and B=8 over the 7B q/k/v/o-sized, gate/up,
-    down and lm_head weights; the W8A8 product at the decoder prefill
-    (M=1280) and the tower (M=1731)."""
+    down and lm_head weights; the W8A8 product at its six prefill shapes
+    and a ragged case (``INT8_CASES``)."""
+    import torch
+
     from vcoder_tpu_torch.ops import int4_matmul as i4
     from vcoder_tpu_torch.ops import int8_matmul as i8
 
     for B in (1, 8):
         for K, N in ((4096, 11008), (11008, 4096), (4096, 32000)):
             check_int4(B, K, N, report if (B, K, N) == (1, 4096, 11008) else None)
-    check_int8(1280, 4096, 11008, report)
-    check_int8(1731, 1024, 4096, None)
+    for label, M, K, N in INT8_CASES:
+        check_int8(label, M, K, N, report if (M, K, N) == INT8_MAIN else None)
     i4.launches = 0  # comparison launches do not count
     i8.reset_launches()
+    # The yardsticks ran cuBLAS on one side stream per CUDA graph, each with
+    # a workspace that stays allocated: free them, so the later phases'
+    # memory readings do not carry them.
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
 
 
 def phase_flash_kernels(report: list) -> None:
@@ -1930,6 +1994,10 @@ def phase_quantized(cfg, params, tok) -> dict:
             raise SystemExit(f"engine {label}: launches {got} != {want} (or {other} nonzero)")
         for k in totals:
             totals[k] += ce[k]
+        # The served tokens' digest, to compare with other runs (a reading:
+        # batching may differ between runs).
+        digest = hashlib.sha1(json.dumps([r["tokens"] for r in res]).encode()).hexdigest()[:16]
+        log(f"  engine {label}: tokens sha1 {digest}")
         if qp is q4:
             first = [r["tokens"][0] for r in res]
             gen_first = [int(model4.generate([ids], *px, max_new_tokens=1).sequences[0, 0])

@@ -80,3 +80,34 @@ def test_ragged_shapes_exact(M, K, N):
                           out_dtype=torch.float32)
     want = (acc.astype(np.float32) * sa) * sb
     np.testing.assert_array_equal(y.numpy(), want)
+
+
+@pytest.mark.parametrize("M,K,N", [(64, 40, 256), (64, 256, 200), (1, 8, 16)])
+def test_launch_refuses_shapes_tma_cannot_read(M, K, N):
+    """The kernel reads both operands through TMA (16-byte row strides): a K
+    or N that is not a multiple of 16 raises before anything is built or
+    launched, naming the shapes."""
+    a, b, sa, sb = (torch.from_numpy(t) for t in _operands(M, K, N))
+    with pytest.raises(ValueError, match=rf"a\({M}, {K}\) b\({K}, {N}\)"):
+        i8.launch_int8_mm(a, b)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        i8.launch_int8_mm_scaled(a, b, sa, sb)
+
+
+def test_launch_refuses_misaligned_views():
+    """A contiguous view that starts off a 16-byte boundary raises too (TMA
+    needs 16-byte-aligned bases); the plain version takes it."""
+    M, K, N = 32, 64, 48
+    a, b, sa, sb = (torch.from_numpy(t) for t in _operands(M, K, N, seed=3))
+    buf = torch.zeros(K * N + 16, dtype=torch.int8)
+    b_off = buf[1:1 + K * N].view(K, N)
+    b_off.copy_(b)
+    assert b_off.is_contiguous() and b_off.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match=rf"16-byte-aligned .*b\({K}, {N}\) at offset 1"):
+        i8.launch_int8_mm(a, b_off)
+    a_off = torch.zeros(M * K + 16, dtype=torch.int8)[8:8 + M * K].view(M, K)
+    a_off.copy_(a)
+    with pytest.raises(ValueError, match=rf"a\({M}, {K}\) at offset 8"):
+        i8.launch_int8_mm_scaled(a_off, b, sa, sb)
+    np.testing.assert_array_equal(i8.int8_mm(a_off, b_off).numpy(),
+                                  a.numpy().astype(np.int64) @ b.numpy().astype(np.int64))

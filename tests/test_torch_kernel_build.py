@@ -69,6 +69,21 @@ def test_backward_library_path_follows_the_shared_hopper_header(tmp_path, monkey
     assert _kernels._lib_path("paged_attn") == before["paged_attn"]
 
 
+def test_int8_library_path_follows_the_shared_hopper_header(tmp_path, monkeypatch):
+    src = _copy_csrc(tmp_path, monkeypatch)
+    # The s8 GEMM includes sm90.cuh directly (its wgmma, TMA and tensor-map
+    # primitives), not the bf16 mainloop of gemm_sm90.cuh.
+    assert _kernels._sources(src / "int8_mm.cu") == [src / "int8_mm.cu", src / "sm90.cuh"]
+    before = {n: _kernels._lib_path(n) for n in ("int8_mm", "int4_matmul")}
+    header = src / "sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _kernels._lib_path("int8_mm") != before["int8_mm"]
+    assert _kernels._lib_path("int4_matmul") == before["int4_matmul"]
+    mid = _kernels._lib_path("int8_mm")
+    (src / "gemm_sm90.cuh").write_text((src / "gemm_sm90.cuh").read_text() + "\n// edited\n")
+    assert _kernels._lib_path("int8_mm") == mid
+
+
 def test_ctypes_signatures_match_the_c_entry_points():
     """Each entry point's argument list in ``_SIGNATURES`` has as many
     arguments as its ``extern "C"`` definition in ``csrc/<name>.cu``: ctypes

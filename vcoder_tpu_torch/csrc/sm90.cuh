@@ -5,7 +5,8 @@
 // runtime, so no library links the driver) and the per-device SM count.
 //
 // Included by gemm_sm90.cuh (the tower GEMMs' mainloop), flash_fwd.cu and
-// flash_bwd.cu (the flash-attention forward and backward). A library's name
+// flash_bwd.cu (the flash-attention forward and backward), and int8_mm.cu
+// (the s8 GEMM). A library's name
 // hashes its source and the headers it includes (ops/_kernels.py), so an
 // edit here rebuilds all of them.
 
@@ -135,6 +136,12 @@ template <int N>
 __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d[64 x 256] += A[64 x 16] @ B[16 x 256], both from shared memory, B read
@@ -275,6 +282,34 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64 x 128] += A[64 x 32] @ B[32 x 128] in s8 with s32 accumulators, A from
+// registers (the m16n8k32 A fragment of each warp's 16 rows), B from shared
+// memory K-major.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_rs(int (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -329,11 +364,13 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dimensions (innermost first, the innermost
-// contiguous, the others `strides` bytes apart: multiples of 16), loaded in
-// boxes of `box` with the 128-byte swizzle; out of bounds reads 0.
+// A tensor of `rank` dimensions (innermost first, the innermost
+// contiguous, the others `strides` bytes apart: multiples of 16) of `type`
+// (bf16 unless given), loaded in boxes of `box` with the 128-byte swizzle;
+// out of bounds reads 0.
 inline int make_map_nd(CUtensorMap* map, const void* ptr, int rank, const long long* dims,
-                       const long long* strides, const int* box) {
+                       const long long* strides, const int* box,
+                       CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   cuuint64_t d[5], s[4];
@@ -344,8 +381,8 @@ inline int make_map_nd(CUtensorMap* map, const void* ptr, int rank, const long l
     elem[i] = 1;
     if (i > 0) s[i - 1] = static_cast<cuuint64_t>(strides[i - 1]);
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), d,
-                        s, b, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = fn(map, type, rank, const_cast<void*>(ptr), d, s, b, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,8 +16,11 @@ The plain versions compute the integer product exactly in float64 (every
 partial sum is an integer below 2**53; CUDA has no integer matmul, and an
 f32 product is not exact at K = 4096). The wrappers take the plain versions
 for tensors on the CPU and launch the kernel for tensors on CUDA; there is no
-fallback from one to the other. ``launches`` and ``launches_scaled`` count
-kernel launches.
+fallback from one to the other. The kernel reads its operands through TMA,
+which needs 16-byte row strides and 16-byte-aligned bases: on CUDA, K and N
+must be multiples of 16 and the operands 16-byte aligned, or the launch
+raises ``ValueError`` (every W8A8 product of the 7B and 13B models is).
+``launches`` and ``launches_scaled`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -58,6 +61,13 @@ def _launch(a, b, sa, sb, out_dtype):
     M, K = a.shape
     N = b.shape[1]
     a, b = a.contiguous(), b.contiguous()
+    if K % 16 or N % 16:
+        raise ValueError(f"int8_mm: TMA needs K and N multiples of 16, got a{tuple(a.shape)} "
+                         f"b{tuple(b.shape)}")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f"int8_mm: TMA needs 16-byte-aligned operands, got a{tuple(a.shape)} "
+                         f"at offset {a.data_ptr() % 16}, b{tuple(b.shape)} at offset "
+                         f"{b.data_ptr() % 16}")
     scaled = sa is not None
     if scaled:
         if out_dtype not in _OUT_KIND:
