@@ -19,8 +19,11 @@ Phases, in order; any failure exits non-zero:
    computing the same function as a yardstick, and its bound: flash
    forward, ViT block, the paged kernel in six cases (bf16 and int8
    decode, a verify window of 4, a 128-token chunk window, GQA with a
-   length-0 row, an unstacked pool), the int4 decode matmul at B=1 and B=8
-   over the 7B gate/up, down and lm_head weights, the int8 GEMM in both
+   length-0 row, an unstacked pool), the int4 decode matmul (K5) at B=1
+   and B=8 over the 7B q/k/v/o, gate/up, down and lm_head weights (timed in
+   both forms, with and without the scale epilogue) and in five ragged
+   cases, each gated on two bf16 ulps, the scaled form bit-equal to the
+   product times the scale and two launches bit-identical, the int8 GEMM in both
    forms at the six W8A8 prefill shapes and a ragged one (the s32 form
    exact, the scaled form within one bf16 rounding; timed beside
    ``torch._int_mm`` on the weight as stored and on a K-major copy), and the
@@ -77,7 +80,8 @@ Phases, in order; any failure exits non-zero:
    ``int4_matmul`` launches per decode step plus 1 per prefill, no ViT
    block; engine D (int4 weights, bf16 pools) and E (int8 weights, int8
    pools) on engine A's traffic, gated on the same counts per admission
-   and per decode step; each engine's tokens are logged as a digest.
+   and per decode step; each engine's tokens are logged as a digest, beside
+   the digest served before the int4 kernel's tensor-core form.
 8. Training at full width: VCoder-DS-7B's stage-3 adapters (seg and depth
    projectors, ``vcoder_lm_emb``) trained over the phase-4 bf16 base
    through ``Trainer``: 4 steps of B=4 over 20 in-memory DS samples,
@@ -1280,50 +1284,126 @@ def graph_ms(fns: list, reps: int = 10) -> float:
     return ms
 
 
-def check_int4(B: int, K: int, N: int, report) -> None:
-    """K5 against its plain version at a 7B decode shape."""
+# K5's cases. Timed, at B=1 (a B=1 decode step) and B=8 (engine D's step):
+# the 7B decoder's q/k/v/o, gate/up and down weights and lm_head, each
+# (label, K, N). Untimed, (B, K, N, x's row stride): B past one group of 8
+# rows and not a multiple of 8, N not a multiple of 16 (the weight read
+# byte by byte), K = 1040, x with a row stride > K (odd in one case: read
+# element by element); B = 13 on the vector path (N = 1200, whose last
+# column tile is ragged); and K = 1000, whose last k-step is partial.
+INT4_SHAPES = (("q/k/v/o", 4096, 4096), ("gate/up", 4096, 11008), ("down", 11008, 4096),
+               ("lm_head", 4096, 32000))
+INT4_MAIN = (1, 4096, 11008)
+INT4_RAGGED = ((3, 1040, 1000, 1064), (13, 1040, 1000, 1043), (40, 1040, 1000, 1056),
+               (13, 1040, 1200, 1048), (5, 1000, 1200, 1000))
+
+
+def int4_operands(B: int, K: int, N: int, sx: int = 0):
+    """Seeded ``x [B, K]`` (bf16, row stride ``sx`` or K), packed ``qp [K/2,
+    N]`` and a per-column f32 scale ``[1, N]`` on the card. x and qp are
+    views into larger random buffers, so whatever a kernel reads past K, B
+    or N is random, not zero."""
+    import torch
+
+    sx = sx or K
+    rng = np.random.RandomState(B + K + N + sx)
+    gen = torch.Generator(device="cuda").manual_seed(K + N)
+    buf = torch.randint(-128, 128, (K // 2 * N + 128 * N + 256,), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    qp = buf[:K // 2 * N].view(K // 2, N)
+    xs = torch.from_numpy(rng.randn(B + 1, sx).astype(np.float32)).to("cuda", torch.bfloat16)
+    x = xs[:B, :K]
+    scale = torch.from_numpy((rng.rand(1, N) * 1e-3 + 1e-3).astype(np.float32)).cuda()
+    return x, qp, scale
+
+
+def int4_agreement(x, qp, scale) -> dict:
+    """K5 on one case: the product against its plain version (max-abs
+    error and its tolerance), the scaled form against the kernel's own
+    product times ``scale.to(x.dtype)`` (bit-equal), and a second launch
+    against the first (bit-identical), and whether all three hold."""
     import torch
 
     from vcoder_tpu_torch.ops import int4_matmul as i4
-    from vcoder_tpu_torch.ops.quant import pack_int4
 
-    rng = np.random.RandomState(K + N + B)
-    vals = torch.from_numpy(rng.randint(-8, 8, (K, N)).astype(np.int8)).cuda()
-    qp = pack_int4(vals)
-    x = torch.from_numpy(rng.randn(B, K).astype(np.float32)).to("cuda", torch.bfloat16)
     y = i4.launch_int4_matmul(x, qp)
-    ref = i4.int4_matmul_ref(x, qp)
+    y2 = i4.launch_int4_matmul(x, qp)
+    ys = i4.launch_int4_matmul(x, qp, scale)
     torch.cuda.synchronize()
+    ref = i4.int4_matmul_ref(x, qp)
     err = (y.float() - ref.float()).abs().max().item()
-    scale = ref.float().abs().max().item()
+    top = ref.float().abs().max().item()
     # f32 sums in another order, then one bf16 rounding each: two bf16 ulps
     # at the largest output.
-    tol = 2.0 ** -7 * max(1.0, scale)
-    ok = err <= tol and torch.isfinite(y.float()).all().item()
-    name = f"int4_matmul B={B} K={K} N={N}"
-    log(f"kernel {name}: max_abs_err {err:.3e} (tol {tol:.3e}, max|ref| {scale:.1f}) "
-        f"-> {'ok' if ok else 'FAIL'}")
-    if not ok:
+    tol = 2.0 ** -7 * max(1.0, top)
+    scaled_equal = bool(torch.equal(ys, y * scale.to(x.dtype)))
+    repeat_equal = bool(torch.equal(y, y2))
+    finite = bool(torch.isfinite(y.float()).all() and torch.isfinite(ys.float()).all())
+    return dict(max_abs=err, tol=tol, max_ref=top, scaled_bit_equal=scaled_equal,
+                repeat_bit_equal=repeat_equal,
+                ok=err <= tol and finite and scaled_equal and repeat_equal)
+
+
+def check_int4(label: str, B: int, K: int, N: int, sx: int = 0, timed: bool = True,
+               report=None) -> dict:
+    """K5 against its plain version at one case (``int4_agreement``); when
+    ``timed``, both forms timed over weight copies that keep L2 cold (a
+    decode step reads each weight once, from HBM), beside the plain version,
+    a bf16 matmul over the dequantized weight (the library column) and the
+    byte bound. Returns the case's numbers."""
+    import torch
+
+    from vcoder_tpu_torch.ops import int4_matmul as i4
+
+    x, qp, scale = int4_operands(B, K, N, sx)
+    agree = int4_agreement(x, qp, scale)
+    name = f"int4_matmul {label} B={B} K={K} N={N}" + (f" stride {sx}" if sx else "")
+    log(f"kernel {name}: max_abs_err {agree['max_abs']:.3e} (tol {agree['tol']:.3e}, max|ref| "
+        f"{agree['max_ref']:.1f}), scaled form bit-equal to product x scale "
+        f"{agree['scaled_bit_equal']}, two launches bit-identical {agree['repeat_bit_equal']} "
+        f"-> {'ok' if agree['ok'] else 'FAIL'}")
+    if not agree["ok"]:
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    row = dict(label=label, B=B, K=K, N=N, max_abs_err=agree["max_abs"])
+    if not timed:
+        return row
     w_bytes = K // 2 * N
-    ms = graph_ms([lambda q=q: i4.launch_int4_matmul(x, q) for q in _copies(qp, w_bytes)])
+    copies = _copies(qp, w_bytes)
+    ms = graph_ms([lambda q=q: i4.launch_int4_matmul(x, q) for q in copies])
+    ms_scaled = graph_ms([lambda q=q: i4.launch_int4_matmul(x, q, scale) for q in copies])
     plain_ms = cuda_ms(lambda: i4.int4_matmul_ref(x, qp), iters=3, warmup=1)
-    wb = vals.to(torch.bfloat16)
+    wb = torch.stack(i4.nibbles(qp), dim=1).reshape(K, N).to(torch.bfloat16)
     lib_ms = graph_ms([lambda w=w: torch.matmul(x, w) for w in _copies(wb, 2 * K * N)])
-    del wb
+    del wb, copies
     flops = 2.0 * B * K * N
     nbytes = w_bytes + B * K * 2 + B * N * 2
     b_ms, b_by = bound(flops, nbytes)
-    log(f"  {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bf16 matmul over the "
-        f"dequantized weight {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
-        f"{nbytes / 1e6:.1f} MB; CUDA-graph replay over weight copies >120 MB, L2 cold)")
+    cluster = i4._CLUSTER.get((torch.cuda.current_device(), K // 2, N, B))
+    log(f"  {name} (clusters of {cluster}): kernel {ms:.4f} ms ({b_ms / ms:.0%} of bound), "
+        f"with the scale {ms_scaled:.4f} ms  plain {plain_ms:.4f} ms  bf16 matmul over the "
+        f"dequantized weight {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB; CUDA-graph "
+        f"replay over weight copies >120 MB, L2 cold)")
     torch.cuda.empty_cache()
+    row.update(ms=ms, ms_scaled=ms_scaled, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+               share=b_ms / ms)
     if report is not None:
         report.append(dict(name="int4_matmul", route="cuda",
                            source="vcoder_tpu_torch/csrc/int4_matmul.cu",
                            replaces="vcoder_tpu/ops/int4_matmul.py:47",
-                           launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, status="ok"))
+                           launches=0, max_abs_err=agree["max_abs"], ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, ms_scaled=ms_scaled,
+                           status="ok"))
+    return row
+
+
+def int4_cases(report=None) -> list:
+    """Every K5 case: the eight timed ones (``INT4_SHAPES`` at B=1 and B=8),
+    then the ragged ones (``INT4_RAGGED``); the main shape (``INT4_MAIN``)
+    goes to ``report``."""
+    rows = [check_int4(label, B, K, N, report=report if (B, K, N) == INT4_MAIN else None)
+            for B in (1, 8) for label, K, N in INT4_SHAPES]
+    rows += [check_int4("ragged", B, K, N, sx, timed=False) for B, K, N, sx in INT4_RAGGED]
+    return rows
 
 
 # K10's cases: the six W8A8 products of a quantized prefill (the 7B
@@ -1443,17 +1523,15 @@ def check_int8(label: str, M: int, K: int, N: int, report) -> None:
 
 def phase_quant_kernels(report: list) -> None:
     """K5 and K10 against their plain versions at the quantized path's
-    shapes: int4 decode at B=1 and B=8 over the 7B q/k/v/o-sized, gate/up,
-    down and lm_head weights; the W8A8 product at its six prefill shapes
-    and a ragged case (``INT8_CASES``)."""
+    shapes: int4 decode at B=1 and B=8 over the 7B q/k/v/o, gate/up, down
+    and lm_head weights and five ragged cases (``int4_cases``); the W8A8
+    product at its six prefill shapes and a ragged case (``INT8_CASES``)."""
     import torch
 
     from vcoder_tpu_torch.ops import int4_matmul as i4
     from vcoder_tpu_torch.ops import int8_matmul as i8
 
-    for B in (1, 8):
-        for K, N in ((4096, 11008), (11008, 4096), (4096, 32000)):
-            check_int4(B, K, N, report if (B, K, N) == (1, 4096, 11008) else None)
+    int4_cases(report)
     for label, M, K, N in INT8_CASES:
         check_int8(label, M, K, N, report if (M, K, N) == INT8_MAIN else None)
     i4.launches = 0  # comparison launches do not count
@@ -1845,6 +1923,7 @@ def plain_quant_route():
     """The plain route of the quantized matmuls, for a reading of the
     kernel route against it: ``qmatmul`` calls the int4 and W8A8 products
     through their modules, so pointing those names at the plain versions
+    (which take the same arguments, the int4 product's scale included)
     swaps the route (the wrappers themselves only ever launch on CUDA).
     Fails if any kernel launched inside, so that a reading of the kernel
     route cannot quietly compare the kernels with themselves."""
@@ -1896,6 +1975,13 @@ def _prefill_routes(params, cfg, tok, pictures, plain: bool = True):
                                           attn_impl="xla")
     torch.cuda.synchronize()
     return lk, lp, plan
+
+
+# Engines D's and E's token digests as served by the CUDA-core int4 kernel
+# that preceded the tensor-core one (partial sums over K added by a second
+# kernel). D's may change, since its sums now run in another order; E runs
+# no int4 product.
+QUANT_DIGESTS = {"D": "f597b0be69ad5b13", "E": "604f9eba2da7939e"}
 
 
 def phase_quantized(cfg, params, tok) -> dict:
@@ -1997,7 +2083,10 @@ def phase_quantized(cfg, params, tok) -> dict:
         # The served tokens' digest, to compare with other runs (a reading:
         # batching may differ between runs).
         digest = hashlib.sha1(json.dumps([r["tokens"] for r in res]).encode()).hexdigest()[:16]
-        log(f"  engine {label}: tokens sha1 {digest}")
+        earlier = QUANT_DIGESTS[label[0]]
+        same = "same as" if digest == earlier else "differs from"
+        log(f"  engine {label}: tokens sha1 {digest} ({same} {earlier}, served by the CUDA-core "
+            f"int4 kernel)")
         if qp is q4:
             first = [r["tokens"][0] for r in res]
             gen_first = [int(model4.generate([ids], *px, max_new_tokens=1).sequences[0, 0])
@@ -2432,7 +2521,7 @@ def _kernel_class(name: str) -> str:
         return "vit_mlp (port)"
     if "paged_attn" in name:
         return "paged_attn (port)"
-    if "int4_matmul" in name or "int4_split_sum" in name:
+    if "int4_matmul" in name:
         return "int4_matmul (port)"
     if "int8_mm" in name:
         return "int8_mm (port)"

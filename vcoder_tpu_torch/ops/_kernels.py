@@ -61,11 +61,12 @@ _SIGNATURES = {
         + [_F, _I, _I, _P],  # scale quant fused stream
     },
     "int4_matmul": {
-        "int4_matmul": [_P] * 4  # x qp part out
+        "int4_matmul": [_P] * 4  # x qp scale out
         + [_I] * 3  # B K2 N
         + [_L]  # x row stride
-        + [_I] * 3  # splits rows_per_split out_f32
+        + [_I] * 2  # cluster out_kind
         + [_P],  # stream
+        "int4_matmul_capacity": [_P],  # blocks[8]
     },
     "int8_mm": {
         "int8_mm": [_P] * 5  # A B sa sb C

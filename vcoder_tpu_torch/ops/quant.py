@@ -13,8 +13,10 @@ high), the layout of the JAX package, so packed bytes carry across unchanged.
    the f32 epilogue ``acc * xs * scale`` -- on CUDA through the kernel
    ``ops/int8_matmul.int8_mm_scaled``; int4 is unpacked first, in plain torch.
 2. int4 below that: a 2-D weight on CUDA goes to the kernel
-   ``ops/int4_matmul.int4_matmul``; on the CPU, or for a stacked 3-D leaf,
-   the nibble-split form ``x_even @ lo + x_odd @ hi``.
+   ``ops/int4_matmul.int4_matmul``, one launch with the scale in its
+   epilogue (bit-equal to the kernel's product times ``scale.to(x.dtype)``,
+   JAX's ``int4_matmul(x, q) * scale.astype(x.dtype)``); on the CPU, or for
+   a stacked 3-D leaf, the nibble-split form ``x_even @ lo + x_odd @ hi``.
 3. int8 below that: the upcast ``x @ q * scale``, plain torch (it was plain
    XLA in JAX). The scale keeps its ``[..., 1, out]`` axis: squeezed, a
    stacked ``[L, out]`` scale would right-align against the token axis.
@@ -184,9 +186,9 @@ def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
             return y.reshape(*x.shape[:-1], q.shape[-1])
         if w.bits == 4:
             if w.q.ndim == 2 and x.device.type == "cuda":
-                N = w.q.shape[-1]
-                y = _int4.int4_matmul(x.reshape(-1, x.shape[-1]), w.q)
-                return y.reshape(*x.shape[:-1], N) * w.scale.to(x.dtype)
+                # One launch: the scale is the kernel's epilogue.
+                y = _int4.int4_matmul(x.reshape(-1, x.shape[-1]), w.q, w.scale.float())
+                return y.reshape(*x.shape[:-1], w.q.shape[-1])
             # Split by nibble instead of unpacking: with row 2i in the low
             # nibble and row 2i+1 in the high,
             #   x @ W == x[..., 0::2] @ lo(q) + x[..., 1::2] @ hi(q).
