@@ -17,9 +17,14 @@ Phases, in order; any failure exits non-zero:
 3. Kernels against their plain PyTorch versions at the main path's shapes,
    each with its time, its plain version's time, one PyTorch call
    computing the same function as a yardstick, and its bound: flash
-   forward, ViT block, the paged kernel in six cases (bf16 and int8
-   decode, a verify window of 4, a 128-token chunk window, GQA with a
-   length-0 row, an unstacked pool), the int4 decode matmul (K5) at B=1
+   forward, ViT block, the paged kernel in fourteen cases (``PAGED_CASES``:
+   bf16 and int8 decode, bf16 and int8 verify windows of 4, bf16 and int8
+   chunk windows, bf16 and int8 GQA with a length-0 row and a window across
+   a page, an unstacked pool, int8 at B=1 where the split is largest, a
+   row with fewer live pages than the split, and int8 at pages of 16, 256
+   and 8; each logs the body and cluster size it takes; gated on max-abs
+   2e-2 and on the relative L2 of each head's output, ``PAGED_REL_L2``),
+   the int4 decode matmul (K5) at B=1
    and B=8 over the 7B q/k/v/o, gate/up, down and lm_head weights (timed in
    both forms, with and without the scale epilogue) and in five ragged
    cases, each gated on two bf16 ulps, the scaled form bit-equal to the
@@ -35,9 +40,11 @@ Phases, in order; any failure exits non-zero:
    per 64-row tile and on exact zeros where the plain gradient is 0, and
    timed beside SDPA's causal backward over the first L_max rows and keys
    (its flash form) and with the boolean mask; the fused append + attend (K7) in
-   five cases (bf16 and int8 pools at windows 1 and 4 at the decode shape,
-   and a GQA case with an inactive row and a window across a page), gated on
-   the active rows' outputs, every pool page but the scratch page byte-equal
+   eight cases (``FUSED_CASES``: bf16 and int8 pools at windows 1 and 4 at
+   the decode shape, bf16 and int8 GQA cases with an inactive row and a
+   window across a page, the int8 one also at pages of 16, and bf16 verify
+   at pages of 128), gated on
+   the active rows' outputs as the paged cases, every pool page but the scratch page byte-equal
    to the plain version's and the scratch page holding the inactive rows'
    writes, timed beside the port's unfused route; the tower GEMMs' shared
    mainloop (``csrc/gemm_sm90.cuh``) in one ragged case per epilogue
@@ -81,7 +88,7 @@ Phases, in order; any failure exits non-zero:
    block; engine D (int4 weights, bf16 pools) and E (int8 weights, int8
    pools) on engine A's traffic, gated on the same counts per admission
    and per decode step; each engine's tokens are logged as a digest, beside
-   the digest served before the int4 kernel's tensor-core form.
+   the digest served before the paged kernel's SPLIT body.
 8. Training at full width: VCoder-DS-7B's stage-3 adapters (seg and depth
    projectors, ``vcoder_lm_emb``) trained over the phase-4 bf16 base
    through ``Trainer``: 4 steps of B=4 over 20 in-memory DS samples,
@@ -898,15 +905,25 @@ def _paged_dense(case):
     return q.transpose(1, 2), kd, vd, mask[:, None]
 
 
-def check_paged(case: dict, report: list) -> None:
-    import torch
-    import torch.nn.functional as F
+def paged_split(case: dict, fused: bool = False) -> int:
+    """The kernel's ``split`` for ``case``: the SPLIT body's cluster size, 0
+    on the PAGE body."""
+    from vcoder_tpu_torch.ops import paged_attention as pa
 
+    return pa.split_of(case["q"], case["kp"].shape[-3], case["table"].shape[1],
+                       quant=case["quant"], fused=fused)
+
+
+def _body(split: int) -> str:
+    return f"SPLIT body, cluster of {split}" if split else "PAGE body"
+
+
+def paged_runs(case: dict):
+    """The kernel's and the plain version's calls on ``case``."""
     from vcoder_tpu_torch.ops import paged_attention as pa
 
     q, kp, vp, ks, vs = (case[x] for x in ("q", "kp", "vp", "ks", "vs"))
     table, lengths, layer, window = case["table"], case["lengths"], case["layer"], case["window"]
-    B, k, H, D = q.shape
     if not case["stacked"]:
         run = lambda: pa.paged_attention(q[:, 0], kp, vp, table, lengths)[:, None]
         plain = lambda: pa.paged_attention_ref(q[:, 0], kp, vp, table, lengths)[:, None]
@@ -919,15 +936,69 @@ def check_paged(case: dict, report: list) -> None:
         run = lambda: pa.carry_paged_attention_multi(q, kp, vp, table, lengths, layer, window=window)
         plain = lambda: pa.carry_paged_attention_multi_ref(
             q, kp, vp, table, lengths, layer, window=window)
+    return run, plain
+
+
+# The paged kernels' gates against the plain version (K3, K4, K7, K8):
+# max-abs 2e-2, and the relative L2 of each (row, token, head) output
+# vector of 128 dims, worst over the vectors. The outputs are bf16 softmax
+# averages whose size falls with the context (about 0.05 over ~1200 keys,
+# O(1) over tens), so max-abs alone is loose at decode lengths; the
+# relative L2 is not. The PAGE body rounds p against the plain version's
+# per-page maxima and differs only in f32 summation order; the SPLIT body
+# rounds p against each warp's running maximum of its split (one bf16
+# rounding of p, 2**-9 relative, either way); both then round the output
+# to bf16, so two outputs differ by a bf16 ulp (2**-8 relative) in a few
+# elements of a vector: a worst head at up to 5.0e-3 on an H100 over
+# these cases, where losing one key of ~1200 moves a head by ~3%. A vector
+# the plain version leaves 0 (a length-0 row) must be 0.
+PAGED_MAX_ABS = 2e-2
+PAGED_REL_L2 = 8e-3
+
+
+def attn_gaps(out, ref) -> tuple:
+    """(max-abs error, worst relative L2 of an output vector over its last
+    dim) of ``out`` against ``ref``; a vector with ``ref`` 0 counts 0 when
+    ``out`` is 0 there too, else inf."""
+    import torch
+
+    d = out.float() - ref.float()
+    num, den = d.norm(dim=-1), ref.float().norm(dim=-1)
+    rel = torch.where(den > 0, num / den.clamp_min(1e-30),
+                      torch.where(num > 0, torch.full_like(num, float("inf")),
+                                  torch.zeros_like(num)))
+    return d.abs().max().item(), rel.max().item()
+
+
+def paged_agreement(case: dict) -> dict:
+    """The kernel against its plain version on ``case``: max-abs error, the
+    worst relative L2 of an output vector, finiteness, and ``ok`` within
+    the gates."""
+    import torch
+
+    run, plain = paged_runs(case)
     out, ref = run(), plain()
     torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    # bf16 output of a softmax average of O(1) values: the kernel and the
-    # plain version round p against the same per-page maxima and differ only
-    # in f32 summation order, then round to bf16 (one ulp is 2**-8 at 1..2).
-    tol = 2e-2
-    ok = err <= tol and torch.isfinite(out.float()).all().item()
-    log(f"kernel {case['name']}: max_abs_err {err:.3e} (tol {tol}) -> {'ok' if ok else 'FAIL'}")
+    err, rel = attn_gaps(out, ref)
+    ok = (err <= PAGED_MAX_ABS and rel <= PAGED_REL_L2
+          and bool(torch.isfinite(out.float()).all().item()))
+    return dict(ok=ok, max_abs=err, tol=PAGED_MAX_ABS, rel_l2=rel, rel_tol=PAGED_REL_L2)
+
+
+def check_paged(case: dict, report: list) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    q, kp, vp = case["q"], case["kp"], case["vp"]
+    table, window = case["table"], case["window"]
+    B, k, H, D = q.shape
+    run, plain = paged_runs(case)
+    agree = paged_agreement(case)
+    err, tol, ok = agree["max_abs"], agree["tol"], agree["ok"]
+    split = paged_split(case)
+    log(f"kernel {case['name']}: max_abs_err {err:.3e} (tol {tol}), worst rel L2 of a head "
+        f"{agree['rel_l2']:.3e} (tol {agree['rel_tol']}), {_body(split)} -> "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"{case['name']}: paged kernel disagrees with its plain version")
     ms = graph_ms([run] * 5)
@@ -936,12 +1007,13 @@ def check_paged(case: dict, report: list) -> None:
     lib_ms = graph_ms([lambda: F.scaled_dot_product_attention(
         qt, kd, vd, attn_mask=mask, enable_gqa=(H != kd.shape[1]))] * 5)
     del kd, vd
-    # Work these inputs need: every live page of K and V (scales included)
-    # read once, q and out once; each query column against its visible keys.
-    KH, page = kp.shape[-3], case["page"]
+    # Work these inputs need: the K and V rows (scales included) of each
+    # row's tokens read once, q and out once; each query column against its
+    # visible keys.
+    KH = kp.shape[-3]
     elem = 1 if case["quant"] else 2
-    live = int(case["n_live"].sum())
-    nbytes = (live * 2 * KH * page * (D * elem + (4 if case["quant"] else 0))
+    tokens = int(case["np_lengths"].sum())
+    nbytes = (tokens * 2 * KH * (D * elem + (4 if case["quant"] else 0))
               + 2 * B * k * H * D * 2 + table.numel() * 4 + B * 4)
     lim = case["np_lengths"][:, None] - window + np.arange(k)[None, :]
     pairs = float(np.clip(lim + 1, 0, None).sum()) * H
@@ -955,7 +1027,52 @@ def check_paged(case: dict, report: list) -> None:
                            source="vcoder_tpu_torch/csrc/paged_attn.cu",
                            replaces=case["replaces"], launches=0, max_abs_err=err, ms=ms,
                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                           library_ms=lib_ms, status="ok"))
+                           library_ms=lib_ms, split=split, status="ok"))
+
+
+DECODE_LENGTHS = np.linspace(1201, 1233, 8).astype(np.int32)
+
+# Phase 3's paged cases, each (keyword arguments of _paged_case, (report
+# row, TPU kernel) or None). The int8 ones take the kernel's SPLIT body
+# (K4), the bf16 ones and the int8 chunk its PAGE body (K3, K8).
+PAGED_CASES = [
+    (dict(name="paged bf16 decode B=8 w=1 L=32@17 H=KH=32 page 64 len 1201-1233",
+          B=8, window=1, H=32, KH=32, lengths=DECODE_LENGTHS),
+     ("paged_attn_bf16", "vcoder_tpu/ops/paged_attention.py:297")),
+    (dict(name="paged int8 decode B=8 w=1 (same shapes)", B=8, window=1, H=32, KH=32,
+          lengths=DECODE_LENGTHS, quant=True, seed=1),
+     ("paged_attn_q8", "vcoder_tpu/ops/paged_attention.py:664")),
+    (dict(name="paged bf16 verify B=8 w=4", B=8, window=4, H=32, KH=32,
+          lengths=DECODE_LENGTHS + 4, seed=2), None),
+    (dict(name="paged bf16 chunk 4 rows w=128", B=4, window=128, H=32, KH=32,
+          lengths=[1280, 1216, 1152, 1280], seed=3), None),
+    (dict(name="paged bf16 GQA 32q/8kv w=4, a length-0 row, a window across a page",
+          B=4, window=4, H=32, KH=8, lengths=[0, 66, 130, 1201], seed=4), None),
+    (dict(name="paged unstacked pool (K8) B=8 w=1", B=8, window=1, H=32, KH=32,
+          lengths=DECODE_LENGTHS, L=1, layer=0, stacked=False, seed=5),
+     ("paged_attn_k8", "vcoder_tpu/ops/paged_attention.py:55")),
+    (dict(name="paged int8 verify B=8 w=4", B=8, window=4, H=32, KH=32,
+          lengths=DECODE_LENGTHS + 4, quant=True, seed=6), None),
+    (dict(name="paged int8 GQA 32q/8kv w=4, a length-0 row, a window across a page",
+          B=4, window=4, H=32, KH=8, lengths=[0, 66, 130, 1201], quant=True, seed=7), None),
+    (dict(name="paged int8 decode B=1 at 1201 tokens", B=1, window=1, H=32, KH=32,
+          lengths=[1201], quant=True, seed=8), None),
+    (dict(name="paged int8 decode B=2, a row with fewer live pages than the split",
+          B=2, window=1, H=32, KH=32, lengths=[1201, 70], quant=True, seed=9), None),
+    (dict(name="paged int8 chunk 2 rows w=128 (PAGE body)", B=2, window=128, H=32, KH=32,
+          lengths=[1280, 1200], quant=True, seed=10), None),
+    # Pages other than 64, on the SPLIT body: a page shorter than a ring
+    # tile (each stage part-full), a page of several tiles, and more pages
+    # a row than the block reads ids of at its start.
+    (dict(name="paged int8 GQA 32q/8kv w=4 page 16, a length-0 row, a window across a page",
+          B=4, window=4, H=32, KH=8, lengths=[0, 18, 130, 1201], page=16, quant=True,
+          seed=17), None),
+    (dict(name="paged int8 decode B=2 page 256 (4 tiles a page), a row of 2 pages",
+          B=2, window=1, H=32, KH=32, lengths=[1201, 300], page=256, quant=True, seed=18),
+     None),
+    (dict(name="paged int8 decode B=1 page 8 at 1201 tokens (151 pages)", B=1, window=1,
+          H=32, KH=32, lengths=[1201], page=8, quant=True, seed=19), None),
+]
 
 
 def phase_paged_kernels(report: list) -> None:
@@ -964,25 +1081,7 @@ def phase_paged_kernels(report: list) -> None:
 
     from vcoder_tpu_torch.ops import paged_attention as pa
 
-    decode_lengths = np.linspace(1201, 1233, 8).astype(np.int32)
-    cases = [
-        (dict(name="paged bf16 decode B=8 w=1 L=32@17 H=KH=32 page 64 len 1201-1233",
-              B=8, window=1, H=32, KH=32, lengths=decode_lengths),
-         ("paged_attn_bf16", "vcoder_tpu/ops/paged_attention.py:297")),
-        (dict(name="paged int8 decode B=8 w=1 (same shapes)", B=8, window=1, H=32, KH=32,
-              lengths=decode_lengths, quant=True, seed=1),
-         ("paged_attn_q8", "vcoder_tpu/ops/paged_attention.py:664")),
-        (dict(name="paged bf16 verify B=8 w=4", B=8, window=4, H=32, KH=32,
-              lengths=decode_lengths + 4, seed=2), None),
-        (dict(name="paged bf16 chunk 4 rows w=128", B=4, window=128, H=32, KH=32,
-              lengths=[1280, 1216, 1152, 1280], seed=3), None),
-        (dict(name="paged bf16 GQA 32q/8kv w=4, a length-0 row, a window across a page",
-              B=4, window=4, H=32, KH=8, lengths=[0, 66, 130, 1201], seed=4), None),
-        (dict(name="paged unstacked pool (K8) B=8 w=1", B=8, window=1, H=32, KH=32,
-              lengths=decode_lengths, L=1, layer=0, stacked=False, seed=5),
-         ("paged_attn_k8", "vcoder_tpu/ops/paged_attention.py:55")),
-    ]
-    for kw, rep in cases:
+    for kw, rep in PAGED_CASES:
         case = _paged_case(**kw)
         if rep:
             case["report"], case["replaces"] = rep
@@ -992,16 +1091,17 @@ def phase_paged_kernels(report: list) -> None:
     pa.reset_launches()  # comparison launches do not count
 
 
-def _fused_case(name, *, B, window, H, KH, lengths, active=None, quant=False, seed=0):
+def _fused_case(name, *, B, window, H, KH, lengths, active=None, page=64, quant=False,
+                seed=0):
     """Inputs for one fused append + attend comparison: the pools, table and
-    query of :func:`_paged_case` (layer 17 of 32, pages of 64; ``lengths``
+    query of :func:`_paged_case` (layer 17 of 32, pages of ``page``; ``lengths``
     include the window for active rows only), plus the window's new K/V
     (int8 values and f32 scales for int8 pools), ``positions = lengths -
     window * active`` and the active mask."""
     import torch
 
-    case = _paged_case(name, B=B, window=window, H=H, KH=KH, lengths=lengths, quant=quant,
-                       seed=seed)
+    case = _paged_case(name, B=B, window=window, H=H, KH=KH, lengths=lengths, page=page,
+                       quant=quant, seed=seed)
     gen = torch.Generator(device="cuda").manual_seed(seed + 50)
     act = np.ones(B, bool) if active is None else np.asarray(active)
     shape = (B, window, KH, 128)
@@ -1025,14 +1125,30 @@ def _pool_list(case, layer_slice=None):
     return pools if layer_slice is None else [p[layer_slice] for p in pools]
 
 
-def check_fused(case: dict, report: list) -> None:
-    """K7 against its plain version on one case, gated on the active rows'
-    outputs, every pool page but the scratch page byte-equal to the plain
-    version's, and the scratch page holding the inactive rows' writes (or
-    unchanged with none); timed beside the port's unfused route (the append
-    writers, then K8 / K3 / K4) and SDPA over pre-gathered K/V."""
+def fused_call(case: dict):
+    """``fused(pools, layer)``: K7 on ``case`` over the given pools."""
+    from vcoder_tpu_torch.ops import paged_attention as pa
+
+    q, table, lengths, window = (case[x] for x in ("q", "table", "lengths", "window"))
+    nk, nv, nks, nvs, pos, act = (case[x] for x in ("nk", "nv", "nks", "nvs", "positions",
+                                                    "active"))
+
+    def fused(pools, l):
+        kw = dict(window=window)
+        if case["quant"]:
+            kw.update(k_scale=pools[2], v_scale=pools[3], new_ks=nks, new_vs=nvs)
+        return pa.carry_paged_attention_fused(q, nk, nv, pools[0], pools[1], table, lengths, pos,
+                                              act, l, **kw)
+
+    return fused
+
+
+def fused_agreement(case: dict) -> dict:
+    """K7 against its plain version on ``case``: the active rows' outputs
+    within the gate, every pool page but the scratch page byte-equal to the
+    plain version's, and the scratch page holding the inactive rows' writes
+    (or unchanged with none)."""
     import torch
-    import torch.nn.functional as F
 
     from vcoder_tpu_torch.ops import paged_attention as pa
 
@@ -1041,17 +1157,9 @@ def check_fused(case: dict, report: list) -> None:
     nk, nv, nks, nvs, pos, act = (case[x] for x in ("nk", "nv", "nks", "nvs", "positions",
                                                     "active"))
     quant = case["quant"]
-    B, k, H, D = q.shape
     n_pages = case["kp"].shape[1]
-    KH, page = case["kp"].shape[2], case["page"]
-
-    def fused(pools, l):
-        kw = dict(window=window)
-        if quant:
-            kw.update(k_scale=pools[2], v_scale=pools[3], new_ks=nks, new_vs=nvs)
-        return pa.carry_paged_attention_fused(q, nk, nv, pools[0], pools[1], table, lengths, pos,
-                                              act, l, **kw)
-
+    page = case["page"]
+    fused = fused_call(case)
     before = [p.clone() for p in _pool_list(case, slice(layer, layer + 1))]
     plain_pools = [p.clone() for p in before]
     out = fused(_pool_list(case), layer)
@@ -1062,8 +1170,8 @@ def check_fused(case: dict, report: list) -> None:
                                              lengths, pos, act, 0, **kw)
     torch.cuda.synchronize()
     a = case["np_active"]
-    err = (out.float() - ref.float())[torch.from_numpy(a).cuda()].abs().max().item()
-    tol = 2e-2  # as the paged kernel's cases: bf16 output, f32 sums in another order
+    rows = torch.from_numpy(a).cuda()
+    err, rel = attn_gaps(out[rows], ref[rows])
     got = _pool_list(case, slice(layer, layer + 1))
     pages_equal = all(torch.equal(g[:, :-1], p[:, :-1]) for g, p in zip(got, plain_pools))
     scratch_ok = True
@@ -1075,14 +1183,43 @@ def check_fused(case: dict, report: list) -> None:
                 scratch_ok &= torch.equal(g[0, n_pages - 1, :, off], src[b, t])
     if a.all():
         scratch_ok = all(torch.equal(g[:, -1], p[:, -1]) for g, p in zip(got, before))
-    ok = (err <= tol and pages_equal and scratch_ok
-          and torch.isfinite(out.float()[torch.from_numpy(a).cuda()]).all().item())
-    log(f"kernel {case['name']}: max_abs_err {err:.3e} on active rows (tol {tol}), pool pages "
-        f"byte-equal but the scratch page {pages_equal}, scratch page holds the inactive rows' "
-        f"writes {scratch_ok} -> {'ok' if ok else 'FAIL'}")
-    if not ok:
+    ok = bool(err <= PAGED_MAX_ABS and rel <= PAGED_REL_L2 and pages_equal and scratch_ok
+              and torch.isfinite(out.float()[rows]).all().item())
+    return dict(ok=ok, max_abs=err, tol=PAGED_MAX_ABS, rel_l2=rel, rel_tol=PAGED_REL_L2,
+                pages_equal=bool(pages_equal), scratch_ok=bool(scratch_ok))
+
+
+def check_fused(case: dict, report: list) -> None:
+    """K7 against its plain version on one case (:func:`fused_agreement`);
+    timed beside the port's unfused route (the append writers, then K8 / K3 /
+    K4) and SDPA over pre-gathered K/V."""
+    import torch
+    import torch.nn.functional as F
+
+    from vcoder_tpu_torch.ops import paged_attention as pa
+
+    q, table, lengths, layer, window = (case[x] for x in ("q", "table", "lengths", "layer",
+                                                          "window"))
+    nk, nv, nks, nvs, pos, act = (case[x] for x in ("nk", "nv", "nks", "nvs", "positions",
+                                                    "active"))
+    quant = case["quant"]
+    B, k, H, D = q.shape
+    KH, page = case["kp"].shape[2], case["page"]
+    fused = fused_call(case)
+    agree = fused_agreement(case)
+    err, tol = agree["max_abs"], agree["tol"]
+    split = paged_split(case, fused=True)
+    log(f"kernel {case['name']}: max_abs_err {err:.3e} on active rows (tol {tol}), worst rel "
+        f"L2 of a head {agree['rel_l2']:.3e} (tol {agree['rel_tol']}), pool pages "
+        f"byte-equal but the scratch page {agree['pages_equal']}, scratch page holds the "
+        f"inactive rows' writes {agree['scratch_ok']}, {_body(split)} -> "
+        f"{'ok' if agree['ok'] else 'FAIL'}")
+    if not agree["ok"]:
         raise SystemExit(f"{case['name']}: fused kernel disagrees with its plain version")
-    del before, plain_pools, got
+    a = case["np_active"]
+    kw = dict(window=window)
+    if quant:
+        kw.update(new_ks=nks, new_vs=nvs)
 
     pools = _pool_list(case)
     ms = graph_ms([lambda: fused(pools, layer)] * 5)
@@ -1132,7 +1269,32 @@ def check_fused(case: dict, report: list) -> None:
                            replaces="vcoder_tpu/ops/paged_attention.py:1263", launches=0,
                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by, library_ms=lib_ms, unfused_ms=unfused_ms,
-                           status="ok"))
+                           split=split, status="ok"))
+
+
+# Phase 9's fused cases (keyword arguments of _fused_case); the first is
+# the report row. All take the kernel's SPLIT body.
+FUSED_CASES = [
+    dict(name="fused bf16 decode B=8 w=1 L=32@17 H=KH=32 page 64 len 1201-1233", B=8,
+         window=1, H=32, KH=32, lengths=DECODE_LENGTHS, seed=11),
+    dict(name="fused bf16 verify B=8 w=4", B=8, window=4, H=32, KH=32,
+         lengths=DECODE_LENGTHS + 3, seed=12),
+    dict(name="fused int8 decode B=8 w=1", B=8, window=1, H=32, KH=32,
+         lengths=DECODE_LENGTHS, quant=True, seed=13),
+    dict(name="fused int8 verify B=8 w=4", B=8, window=4, H=32, KH=32,
+         lengths=DECODE_LENGTHS + 3, quant=True, seed=14),
+    dict(name="fused bf16 GQA 32q/8kv w=4, an inactive row, a window across a page", B=4,
+         window=4, H=32, KH=8, lengths=[66, 130, 1201, 37],
+         active=[True, True, True, False], seed=15),
+    dict(name="fused int8 GQA 32q/8kv w=4, an inactive row, a window across a page", B=4,
+         window=4, H=32, KH=8, lengths=[66, 130, 1201, 37],
+         active=[True, True, True, False], quant=True, seed=16),
+    dict(name="fused int8 GQA 32q/8kv w=4 page 16, an inactive row, a window across a page",
+         B=4, window=4, H=32, KH=8, lengths=[18, 130, 1201, 37],
+         active=[True, True, True, False], page=16, quant=True, seed=20),
+    dict(name="fused bf16 verify B=2 w=4 page 128 (4 tiles a page)", B=2, window=4, H=32,
+         KH=32, lengths=[1204, 300], page=128, seed=21),
+]
 
 
 def phase_fused_kernels(report: list) -> None:
@@ -1144,21 +1306,7 @@ def phase_fused_kernels(report: list) -> None:
 
     from vcoder_tpu_torch.ops import paged_attention as pa
 
-    decode_lengths = np.linspace(1201, 1233, 8).astype(np.int32)
-    cases = [
-        dict(name="fused bf16 decode B=8 w=1 L=32@17 H=KH=32 page 64 len 1201-1233", B=8,
-             window=1, H=32, KH=32, lengths=decode_lengths, seed=11),
-        dict(name="fused bf16 verify B=8 w=4", B=8, window=4, H=32, KH=32,
-             lengths=decode_lengths + 3, seed=12),
-        dict(name="fused int8 decode B=8 w=1", B=8, window=1, H=32, KH=32,
-             lengths=decode_lengths, quant=True, seed=13),
-        dict(name="fused int8 verify B=8 w=4", B=8, window=4, H=32, KH=32,
-             lengths=decode_lengths + 3, quant=True, seed=14),
-        dict(name="fused bf16 GQA 32q/8kv w=4, an inactive row, a window across a page", B=4,
-             window=4, H=32, KH=8, lengths=[66, 130, 1201, 37],
-             active=[True, True, True, False], seed=15),
-    ]
-    for i, kw in enumerate(cases):
+    for i, kw in enumerate(FUSED_CASES):
         case = _fused_case(**kw)
         case["report"] = i == 0
         check_fused(case, report)
@@ -1977,11 +2125,11 @@ def _prefill_routes(params, cfg, tok, pictures, plain: bool = True):
     return lk, lp, plan
 
 
-# Engines D's and E's token digests as served by the CUDA-core int4 kernel
-# that preceded the tensor-core one (partial sums over K added by a second
-# kernel). D's may change, since its sums now run in another order; E runs
-# no int4 product.
-QUANT_DIGESTS = {"D": "f597b0be69ad5b13", "E": "604f9eba2da7939e"}
+# Engines D's and E's token digests as served before the paged kernel's
+# SPLIT body (with the tensor-core int4 kernel). D's bf16 pools still take
+# the PAGE body; E's int8 pools now take the SPLIT body, which rounds p
+# against each split's running maximum, so E's may change.
+QUANT_DIGESTS = {"D": "839478c442ce0f96", "E": "604f9eba2da7939e"}
 
 
 def phase_quantized(cfg, params, tok) -> dict:
@@ -2085,8 +2233,8 @@ def phase_quantized(cfg, params, tok) -> dict:
         digest = hashlib.sha1(json.dumps([r["tokens"] for r in res]).encode()).hexdigest()[:16]
         earlier = QUANT_DIGESTS[label[0]]
         same = "same as" if digest == earlier else "differs from"
-        log(f"  engine {label}: tokens sha1 {digest} ({same} {earlier}, served by the CUDA-core "
-            f"int4 kernel)")
+        log(f"  engine {label}: tokens sha1 {digest} ({same} {earlier}, served before the paged "
+            f"kernel's SPLIT body)")
         if qp is q4:
             first = [r["tokens"][0] for r in res]
             gen_first = [int(model4.generate([ids], *px, max_new_tokens=1).sequences[0, 0])

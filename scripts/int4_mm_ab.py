@@ -37,10 +37,9 @@ non-zero when a check fails.
 from __future__ import annotations
 
 import argparse
-import contextlib
+import functools
 import ctypes
 import json
-import os
 import re
 import subprocess
 import sys
@@ -50,7 +49,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+import _ab  # noqa: E402
 import chip_smoke as cs  # noqa: E402
+
+KERNEL = "int4_matmul"
 
 # SASS opcodes counted in the build report: the tensor-core products
 # (HMMA), the CUDA-core FMAs of the earlier per-row loop (FFMA), the unpack
@@ -90,9 +92,7 @@ OLD_ARGTYPES = [_P] * 4 + [_I] * 3 + [_L] + [_I] * 3 + [_P]
 def sass_counts(lib: Path) -> dict:
     """Counts of ``SASS_OPS``, of 16-byte global and shared loads, and the
     kernels (functions) in a library."""
-    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
+    text = _ab.sass(lib)
     lines = text.splitlines()
     counts: dict = {op: sum(len(re.findall(r"\b" + op + r"\b", ln)) for ln in lines)
                     for op in SASS_OPS}
@@ -108,66 +108,15 @@ def _log_build(label: str, text: str) -> None:
             cs.log(f"  ptxas[{label}] {line.strip()}")
 
 
-def start_variants(sources: dict, tmp: Path) -> dict:
-    """Starts one nvcc per {label: source text}, into ``tmp``; returns
-    {label: (process, library path)} for ``finish_variants``."""
-    from vcoder_tpu_torch.ops import _kernels
-
-    procs = {}
-    for i, (label, text) in enumerate(sources.items()):
-        cu, so = tmp / f"variant{i}.cu", tmp / f"libvariant{i}.so"
-        cu.write_text(text)
-        procs[label] = (subprocess.Popen(_kernels.nvcc_command(cu, so), stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True), so)
-    return procs
-
-
 def finish_variants(procs: dict) -> dict:
-    """Waits for the builds of ``start_variants``; returns {label: loaded
-    library} (a base, whose label holds "#", with the earlier signature;
-    the others with this tree's)."""
-    from vcoder_tpu_torch.ops import _kernels
-
-    libs = {}
-    for label, (proc, so) in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed for {label!r}:\n{text}")
-        _log_build(label, text)
-        if "#" in label:
-            cdll = ctypes.CDLL(str(so))
-            cdll.int4_matmul.argtypes = OLD_ARGTYPES
-            cdll.int4_matmul.restype = ctypes.c_int
-            libs[label] = cdll
-        else:
-            libs[label] = _kernels.load("int4_matmul", so)
-    return libs
+    """Waits for the builds of ``_ab.start_variants``; returns {label:
+    loaded library} (a base, whose label holds "#", with the earlier
+    signature; the others with this tree's)."""
+    return _ab.finish_variants(KERNEL, procs, _log_build, old_argtypes=OLD_ARGTYPES)
 
 
-def substituted(subs: list) -> str:
-    """This tree's int4_matmul.cu with each (old, new) of ``subs`` replaced."""
-    from vcoder_tpu_torch.ops import _kernels
-
-    src = (_kernels.SRC_DIR / "int4_matmul.cu").read_text()
-    for old, new in subs:
-        if src.count(old) != 1:
-            raise SystemExit(f"{old!r} is not in int4_matmul.cu exactly once")
-        src = src.replace(old, new)
-    return src
-
-
-@contextlib.contextmanager
-def library(cdll):
-    """The wrappers launch ``cdll`` (another build) inside the block."""
-    from vcoder_tpu_torch.ops import _kernels
-
-    real = _kernels.lib("int4_matmul")
-    if cdll is not None:
-        _kernels._LIBS["int4_matmul"] = cdll
-    try:
-        yield
-    finally:
-        _kernels._LIBS["int4_matmul"] = real
+substituted = functools.partial(_ab.substituted, KERNEL)  # (subs) -> this tree's source
+library = functools.partial(_ab.library, KERNEL)  # with library(cdll): ...
 
 
 def old_call(cdll, x, qp):
@@ -306,7 +255,7 @@ def main() -> int:
             sources.update({label: substituted([sub]) for label, sub in FAULTS.items()})
         if args.floor:
             sources["floor"] = substituted([FLOOR])
-        procs = start_variants(sources, Path(tmp))
+        procs = _ab.start_variants(sources, Path(tmp))
         secs = _kernels.build(["int4_matmul"])
         cs.log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})}")
         _log_build("int4_matmul", _kernels.BUILD_LOG.get("int4_matmul", ""))

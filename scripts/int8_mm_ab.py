@@ -25,9 +25,8 @@ check fails.
 from __future__ import annotations
 
 import argparse
-import contextlib
+import functools
 import json
-import os
 import re
 import subprocess
 import sys
@@ -37,7 +36,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+import _ab  # noqa: E402
 import chip_smoke as cs  # noqa: E402
+
+KERNEL = "int8_mm"
 
 # SASS opcodes counted in the build report: every warpgroup MMA ("*GMMA",
 # IGMMA for s8), the TMA loads, the mma.sync form of the earlier kernel
@@ -64,9 +66,7 @@ FAULTS = {
 
 def sass_counts(lib: Path) -> dict:
     """Counts of the warpgroup MMA opcodes and of ``SASS_OPS`` in a library."""
-    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
+    text = _ab.sass(lib)
     counts: dict = {}
     for line in text.splitlines():
         for op in _GMMA.findall(line):
@@ -86,48 +86,11 @@ def _log_build(label: str, text: str) -> None:
 def build_variants(sources: dict, tmp: Path) -> dict:
     """Builds {label: source text} in parallel into ``tmp``; returns {label:
     library} with ``int8_mm``'s C signature."""
-    from vcoder_tpu_torch.ops import _kernels
-
-    procs = {}
-    for i, (label, text) in enumerate(sources.items()):
-        cu, so = tmp / f"variant{i}.cu", tmp / f"libvariant{i}.so"
-        cu.write_text(text)
-        procs[label] = (subprocess.Popen(_kernels.nvcc_command(cu, so), stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    for label, (proc, so) in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed for {label!r}:\n{text}")
-        _log_build(label, text)
-        libs[label] = _kernels.load("int8_mm", so)
-    return libs
+    return _ab.finish_variants(KERNEL, _ab.start_variants(sources, tmp), _log_build)
 
 
-def substituted(subs: list) -> str:
-    """This tree's int8_mm.cu with each (old, new) of ``subs`` replaced."""
-    from vcoder_tpu_torch.ops import _kernels
-
-    src = (_kernels.SRC_DIR / "int8_mm.cu").read_text()
-    for old, new in subs:
-        if src.count(old) != 1:
-            raise SystemExit(f"{old!r} is not in int8_mm.cu exactly once")
-        src = src.replace(old, new)
-    return src
-
-
-@contextlib.contextmanager
-def library(cdll):
-    """The wrappers launch ``cdll`` (another build) inside the block."""
-    from vcoder_tpu_torch.ops import _kernels
-
-    real = _kernels.lib("int8_mm")
-    if cdll is not None:
-        _kernels._LIBS["int8_mm"] = cdll
-    try:
-        yield
-    finally:
-        _kernels._LIBS["int8_mm"] = real
+substituted = functools.partial(_ab.substituted, KERNEL)  # (subs) -> this tree's source
+library = functools.partial(_ab.library, KERNEL)  # with library(cdll): ...
 
 
 def turns(runs: dict, first: list) -> dict:

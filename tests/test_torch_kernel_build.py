@@ -61,12 +61,14 @@ def test_library_path_follows_the_shared_hopper_header(tmp_path, monkeypatch):
 def test_backward_library_path_follows_the_shared_hopper_header(tmp_path, monkeypatch):
     src = _copy_csrc(tmp_path, monkeypatch)
     assert src / "sm90.cuh" in _kernels._sources(src / "flash_bwd.cu")
-    before = {n: _kernels._lib_path(n) for n in ("flash_bwd", "paged_attn")}
+    before = {n: _kernels._lib_path(n) for n in ("flash_bwd", "paged_attn", "int4_matmul")}
     header = src / "sm90.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
-    # The backward includes it; the paged kernel does not.
+    # The backward includes it, and the paged kernel (its SPLIT body's
+    # mbarriers); the int4 kernel does not.
     assert _kernels._lib_path("flash_bwd") != before["flash_bwd"]
-    assert _kernels._lib_path("paged_attn") == before["paged_attn"]
+    assert _kernels._lib_path("paged_attn") != before["paged_attn"]
+    assert _kernels._lib_path("int4_matmul") == before["int4_matmul"]
 
 
 def test_int8_library_path_follows_the_shared_hopper_header(tmp_path, monkeypatch):

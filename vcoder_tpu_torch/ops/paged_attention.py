@@ -55,7 +55,9 @@ engines' bf16 decode, see :func:`carry_paged_attention`) and
 ``launches_fused`` (K7: fused append + attend, either pool type) count
 kernel launches; ``launches_by_window`` counts the stacked and fused
 launches by window. What bounds the kernel and what its design does about it
-is in the note at the top of ``csrc/paged_attn.cu``.
+is in the note at the top of ``csrc/paged_attn.cu``: int8 and fused calls
+with ``C = group * window <= 16`` take its SPLIT body (a row's pages split
+over a cluster of :func:`_split_plan` blocks), the others its PAGE body.
 
 :data:`FUSED_APPEND` is read at call time by ``models/llama.py`` (the JAX
 package reads its flag when a step is traced); it defaults to False, as
@@ -82,6 +84,7 @@ the scratch page is never read as valid.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Optional
 
 import torch
@@ -93,6 +96,14 @@ NEG_INF = -1e30
 #: Decode steps and verify windows of at most 16 tokens append and attend in
 #: one kernel (:func:`carry_paged_attention_fused`); read at call time.
 FUSED_APPEND = False
+
+# The SPLIT body (csrc/paged_attn.cu): at most _MAX_SPLIT blocks a cluster;
+# per device and instantiation (quant, fused, NC) the blocks one wave holds
+# with clusters of 1 .. _MAX_SPLIT, asked of the card once; and the cluster
+# size chosen per launch shape.
+_MAX_SPLIT = 8
+_CAPACITY: dict = {}
+_SPLIT: dict = {}
 
 launches_bf16 = 0
 launches_q8 = 0
@@ -291,6 +302,64 @@ def carry_paged_attention_fused_ref(
 # ---------------------------------------------------------------------------
 
 
+def takes_split(quant: bool, fused: bool, C: int) -> bool:
+    """Whether a call takes the kernel's SPLIT body: int8 or fused, with
+    ``C = group * window`` query columns at most 16 (the calls that body is
+    built for, ``split_built`` in ``csrc/paged_attn.cu``)."""
+    return bool(quant or fused) and C <= 16
+
+
+def _nc(C: int) -> int:
+    """The SPLIT body's column count for C columns (its instantiation)."""
+    return next(n for n in (1, 2, 4, 8, 16) if C <= n)
+
+
+def _split_plan(B: int, KH: int, C: int, max_live_pages: int, capacity) -> int:
+    """Blocks of a cluster splitting each row's pages: the most (up to
+    ``_MAX_SPLIT``, and no more than ``max_live_pages``, the table's width)
+    whose grid of ``B * KH`` clusters still fits one wave, ``capacity[s - 1]``
+    blocks for clusters of ``s``; 1 when even that does not fit. A second
+    wave would double the time of its blocks. ``C`` only names the
+    instantiation ``capacity`` was asked for."""
+    del C
+    best = 1
+    for s in range(2, min(_MAX_SPLIT, max_live_pages) + 1):
+        if B * KH * s <= capacity[s - 1]:
+            best = s
+    return best
+
+
+def _capacity(idx: int, quant: bool, fused: bool, C: int) -> tuple:
+    """The SPLIT body's one-wave capacity on CUDA device ``idx`` for the
+    instantiation of (quant, fused, C), clusters of 1 .. ``_MAX_SPLIT``
+    blocks, asked of the card once."""
+    key = (idx, bool(quant), bool(fused), _nc(C))
+    if key not in _CAPACITY:
+        blocks = (ctypes.c_int * _MAX_SPLIT)()
+        with torch.cuda.device(idx):
+            err = _kernels.lib("paged_attn").paged_attn_capacity(
+                int(quant), int(fused), int(C), ctypes.addressof(blocks))
+        _kernels.check(err, "paged_attn_capacity")
+        _CAPACITY[key] = tuple(blocks)
+    return _CAPACITY[key]
+
+
+def split_of(q: torch.Tensor, KH: int, p_max: int, *, quant: bool, fused: bool) -> int:
+    """The kernel's ``split`` argument for a launch on ``q`` [B, k, H, D] over
+    ``KH`` KV heads and a table of width ``p_max``: the SPLIT body's cluster
+    size, :func:`_split_plan` under the card's capacity, or 0 for the PAGE
+    body. The one place that routes a call between the bodies."""
+    B, k, H, _ = q.shape
+    C = (H // KH) * k
+    if not takes_split(quant, fused, C):
+        return 0
+    idx = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    key = (idx, B, KH, C, p_max, bool(quant), bool(fused))
+    if key not in _SPLIT:
+        _SPLIT[key] = _split_plan(B, KH, C, p_max, _capacity(idx, quant, fused, C))
+    return _SPLIT[key]
+
+
 def launch_paged_attn(
     q: torch.Tensor,
     k_pages: torch.Tensor,  # ONE layer [n_pages, KH, page, 128]
@@ -330,6 +399,8 @@ def launch_paged_attn(
             raise ValueError(f"paged_attn: {name} must be contiguous {want} on {q.device}")
     if v_pages.shape != k_pages.shape or (quant and k_scale.shape != k_pages.shape[:3]):
         raise ValueError("paged_attn: pool shapes disagree")
+    if any(x.data_ptr() % 16 for _, x in pools):
+        raise ValueError("paged_attn: the pools must be 16-byte aligned (bulk copies)")
     table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     if table.ndim != 2 or table.shape[0] != B or lens.shape != (B,):
@@ -353,6 +424,7 @@ def launch_paged_attn(
         ptrs = [nk.data_ptr(), nv.data_ptr(), nks.data_ptr() if quant else None,
                 nvs.data_ptr() if quant else None, pos.data_ptr(), act.data_ptr()]
     out = torch.empty((B, k, H, D), dtype=q.dtype, device=q.device)
+    split = split_of(q, KH, table.shape[1], quant=quant, fused=fused is not None)
     fn = _kernels.lib("paged_attn").paged_attn
     err = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -360,7 +432,8 @@ def launch_paged_attn(
         table.data_ptr(), lens.data_ptr(), out.data_ptr(), *ptrs,
         B, window, H, KH, n_pages, page, table.shape[1],
         q.stride(0), q.stride(1), q.stride(2),
-        float(D**-0.5), int(quant), int(fused is not None), _kernels.stream_handle(q.device),
+        float(D**-0.5), int(quant), int(fused is not None), split,
+        _kernels.stream_handle(q.device),
     )
     _kernels.check(err, "paged_attn")
     return out
