@@ -5,7 +5,8 @@
     python3 chip_smoke.py --profile        # also torch.profiler: two B=1 requests,
                                            # the paged engine's decode step at B=8,
                                            # in bf16, with int4/int8 weights and with
-                                           # the fused append, and one training step
+                                           # the fused append, engine C's first turn
+                                           # (chunked prefill), and one training step
     python3 chip_smoke.py --faults         # only: K6's gates against faulty builds
                                            # of flash_bwd.cu (K6_FAULTS)
 
@@ -17,13 +18,17 @@ Phases, in order; any failure exits non-zero:
 3. Kernels against their plain PyTorch versions at the main path's shapes,
    each with its time, its plain version's time, one PyTorch call
    computing the same function as a yardstick, and its bound: flash
-   forward, ViT block, the paged kernel in fourteen cases (``PAGED_CASES``:
+   forward, ViT block, the paged kernel in nineteen cases (``PAGED_CASES``:
    bf16 and int8 decode, bf16 and int8 verify windows of 4, bf16 and int8
-   chunk windows, bf16 and int8 GQA with a length-0 row and a window across
-   a page, an unstacked pool, int8 at B=1 where the split is largest, a
-   row with fewer live pages than the split, and int8 at pages of 16, 256
-   and 8; each logs the body and cluster size it takes; gated on max-abs
-   2e-2 and on the relative L2 of each head's output, ``PAGED_REL_L2``),
+   chunk windows (int8 at 2 and 4 rows, bf16 also at pages of 16 and 256,
+   a GQA chunk with a length-0 row and a row of 70 tokens, an int8 chunk
+   whose live page ids lie past the pool), bf16 and int8 GQA with a
+   length-0 row and a window across a page, an unstacked pool, int8 at B=1
+   where the split is largest, a row with fewer live pages than the split,
+   and int8 at pages of 16, 256 and 8; each logs the body -- SPLIT up to
+   16 query columns, TILE past them -- and cluster size it takes; gated on
+   max-abs 2e-2 and on the relative L2 of each head's output,
+   ``PAGED_REL_L2``),
    the int4 decode matmul (K5) at B=1
    and B=8 over the 7B q/k/v/o, gate/up, down and lm_head weights (timed in
    both forms, with and without the scale epilogue) and in five ragged
@@ -40,10 +45,11 @@ Phases, in order; any failure exits non-zero:
    per 64-row tile and on exact zeros where the plain gradient is 0, and
    timed beside SDPA's causal backward over the first L_max rows and keys
    (its flash form) and with the boolean mask; the fused append + attend (K7) in
-   eight cases (``FUSED_CASES``: bf16 and int8 pools at windows 1 and 4 at
+   ten cases (``FUSED_CASES``: bf16 and int8 pools at windows 1 and 4 at
    the decode shape, bf16 and int8 GQA cases with an inactive row and a
-   window across a page, the int8 one also at pages of 16, and bf16 verify
-   at pages of 128), gated on
+   window across a page, the int8 one also at pages of 16, bf16 verify
+   at pages of 128, and bf16 and int8 GQA windows of 8, 32 columns, on the
+   TILE body), gated on
    the active rows' outputs as the paged cases, every pool page but the scratch page byte-equal
    to the plain version's and the scratch page holding the inactive rows'
    writes, timed beside the port's unfused route; the tower GEMMs' shared
@@ -79,7 +85,8 @@ Phases, in order; any failure exits non-zero:
    two-turn conversations. Gates: every request completes; in A and B the
    paged counters equal 32 x the decode steps and flash/ViT launches are
    32/23 per admission; B's first tokens equal A's; C launched the paged
-   kernel at windows 4 and 128 and hit the prefix cache.
+   kernel at windows 4 and 128 and hit the prefix cache. Each engine logs
+   its served tokens' digest.
 7. Quantized weights at full width: the phase-4 weights quantized on the
    card (``quantize_params``) to int4 and int8; the 3 requests of phase 4
    through ``generate`` on the int4 model, gated on 362 W8A8 products
@@ -88,7 +95,7 @@ Phases, in order; any failure exits non-zero:
    block; engine D (int4 weights, bf16 pools) and E (int8 weights, int8
    pools) on engine A's traffic, gated on the same counts per admission
    and per decode step; each engine's tokens are logged as a digest, beside
-   the digest served before the paged kernel's SPLIT body.
+   the digest last recorded (``QUANT_DIGESTS``).
 8. Training at full width: VCoder-DS-7B's stage-3 adapters (seg and depth
    projectors, ``vcoder_lm_emb``) trained over the phase-4 bf16 base
    through ``Trainer``: 4 steps of B=4 over 20 in-memory DS samples,
@@ -128,6 +135,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -837,11 +845,14 @@ def check_vit_block(report: list) -> None:
 
 
 def _paged_case(name, *, B, window, H, KH, lengths, L=32, layer=17, page=64, quant=False,
-                stacked=True, seed=0):
+                stacked=True, seed=0, bad_ids=False):
     """Inputs for one paged-attention comparison: pools of L layers (or one
     unstacked layer), each row's live pages drawn without replacement from
     pages 1..n-2 (the sentinel and scratch pages are never allocated), table
-    entries past a row's pages pointing at the sentinel."""
+    entries past a row's pages pointing at the sentinel. ``bad_ids``: the
+    second live page of row 0 and the third of the last row get ids past
+    either end of the pool, which the kernel clips to its first or last
+    page."""
     import torch
 
     dev = "cuda"
@@ -857,6 +868,8 @@ def _paged_case(name, *, B, window, H, KH, lengths, L=32, layer=17, page=64, qua
     for b in range(B):
         table[b, : n_live[b]] = ids[o : o + n_live[b]]
         o += n_live[b]
+    if bad_ids:
+        table[0, 1], table[B - 1, 2] = n_pages + 5, -3
     gen = torch.Generator(device=dev).manual_seed(seed)
     shape = ((L,) if stacked else ()) + (n_pages, KH, page, D)
     if quant:
@@ -889,7 +902,7 @@ def _paged_dense(case):
     KH = kp.shape[1]
     n_live = case["n_live"]
     S = int(n_live.max()) * page
-    idx = case["table"][:, : int(n_live.max())].long()  # [B, P]
+    idx = case["table"][:, : int(n_live.max())].long().clamp(0, kp.shape[0] - 1)  # [B, P]
 
     def dense(pool, scale):
         x = pool[idx]  # [B, P, KH, page, D]
@@ -905,17 +918,19 @@ def _paged_dense(case):
     return q.transpose(1, 2), kd, vd, mask[:, None]
 
 
-def paged_split(case: dict, fused: bool = False) -> int:
-    """The kernel's ``split`` for ``case``: the SPLIT body's cluster size, 0
-    on the PAGE body."""
+def paged_split(case: dict, fused: bool = False) -> tuple:
+    """The kernel's ``(body, cluster)`` for ``case`` (``split_of``)."""
     from vcoder_tpu_torch.ops import paged_attention as pa
 
     return pa.split_of(case["q"], case["kp"].shape[-3], case["table"].shape[1],
                        quant=case["quant"], fused=fused)
 
 
-def _body(split: int) -> str:
-    return f"SPLIT body, cluster of {split}" if split else "PAGE body"
+def _body(route: tuple) -> str:
+    from vcoder_tpu_torch.ops import paged_attention as pa
+
+    body, cluster = route
+    return f"{'SPLIT' if body == pa.BODY_SPLIT else 'TILE'} body, cluster of {cluster}"
 
 
 def paged_runs(case: dict):
@@ -944,10 +959,11 @@ def paged_runs(case: dict):
 # vector of 128 dims, worst over the vectors. The outputs are bf16 softmax
 # averages whose size falls with the context (about 0.05 over ~1200 keys,
 # O(1) over tens), so max-abs alone is loose at decode lengths; the
-# relative L2 is not. The PAGE body rounds p against the plain version's
-# per-page maxima and differs only in f32 summation order; the SPLIT body
-# rounds p against each warp's running maximum of its split (one bf16
-# rounding of p, 2**-9 relative, either way); both then round the output
+# relative L2 is not. The TILE body rounds p against the running maxima
+# of 64-key tiles (at 64-token pages the plain version's per-page maxima)
+# and differs in f32 summation order; the SPLIT body rounds p against each
+# warp's running maximum of its split (one bf16 rounding of p, 2**-9
+# relative, either way); both then round the output
 # to bf16, so two outputs differ by a bf16 ulp (2**-8 relative) in a few
 # elements of a vector: a worst head at up to 5.0e-3 on an H100 over
 # these cases, where losing one key of ~1200 moves a head by ~3%. A vector
@@ -995,9 +1011,9 @@ def check_paged(case: dict, report: list) -> None:
     run, plain = paged_runs(case)
     agree = paged_agreement(case)
     err, tol, ok = agree["max_abs"], agree["tol"], agree["ok"]
-    split = paged_split(case)
+    route = paged_split(case)
     log(f"kernel {case['name']}: max_abs_err {err:.3e} (tol {tol}), worst rel L2 of a head "
-        f"{agree['rel_l2']:.3e} (tol {agree['rel_tol']}), {_body(split)} -> "
+        f"{agree['rel_l2']:.3e} (tol {agree['rel_tol']}), {_body(route)} -> "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"{case['name']}: paged kernel disagrees with its plain version")
@@ -1027,14 +1043,14 @@ def check_paged(case: dict, report: list) -> None:
                            source="vcoder_tpu_torch/csrc/paged_attn.cu",
                            replaces=case["replaces"], launches=0, max_abs_err=err, ms=ms,
                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                           library_ms=lib_ms, split=split, status="ok"))
+                           library_ms=lib_ms, body=_body(route), status="ok"))
 
 
 DECODE_LENGTHS = np.linspace(1201, 1233, 8).astype(np.int32)
 
 # Phase 3's paged cases, each (keyword arguments of _paged_case, (report
-# row, TPU kernel) or None). The int8 ones take the kernel's SPLIT body
-# (K4), the bf16 ones and the int8 chunk its PAGE body (K3, K8).
+# row, TPU kernel) or None). Decode and verify windows (C <= 16 columns)
+# take the kernel's SPLIT body, chunk windows its TILE body.
 PAGED_CASES = [
     (dict(name="paged bf16 decode B=8 w=1 L=32@17 H=KH=32 page 64 len 1201-1233",
           B=8, window=1, H=32, KH=32, lengths=DECODE_LENGTHS),
@@ -1059,8 +1075,23 @@ PAGED_CASES = [
           lengths=[1201], quant=True, seed=8), None),
     (dict(name="paged int8 decode B=2, a row with fewer live pages than the split",
           B=2, window=1, H=32, KH=32, lengths=[1201, 70], quant=True, seed=9), None),
-    (dict(name="paged int8 chunk 2 rows w=128 (PAGE body)", B=2, window=128, H=32, KH=32,
+    (dict(name="paged int8 chunk 2 rows w=128", B=2, window=128, H=32, KH=32,
           lengths=[1280, 1200], quant=True, seed=10), None),
+    (dict(name="paged int8 chunk 4 rows w=128", B=4, window=128, H=32, KH=32,
+          lengths=[1280, 1216, 1152, 1280], quant=True, seed=22), None),
+    # TILE body: a 64-key tile of 4 pages of 16 (boxes of 16 rows) and a
+    # page of 4 tiles; GQA chunk columns (4 heads a KV head, 4 column tiles
+    # a row), a length-0 row and a row of 70 tokens, whose first 58 window
+    # columns see no key.
+    (dict(name="paged bf16 chunk 4 rows w=128 page 16", B=4, window=128, H=32, KH=32,
+          lengths=[1280, 1216, 1152, 1280], page=16, seed=23), None),
+    (dict(name="paged bf16 chunk 4 rows w=128 page 256", B=4, window=128, H=32, KH=32,
+          lengths=[1280, 1216, 1152, 1280], page=256, seed=24), None),
+    (dict(name="paged bf16 GQA 32q/8kv chunk w=128, a length-0 row, a row of 70 tokens",
+          B=4, window=128, H=32, KH=8, lengths=[0, 70, 1152, 1280], seed=25), None),
+    (dict(name="paged int8 chunk 2 rows w=128 page 16, live page ids past the pool (clipped)",
+          B=2, window=128, H=32, KH=32, lengths=[1280, 1200], page=16, quant=True, seed=28,
+          bad_ids=True), None),
     # Pages other than 64, on the SPLIT body: a page shorter than a ring
     # tile (each stage part-full), a page of several tiles, and more pages
     # a row than the block reads ids of at its start.
@@ -1208,11 +1239,11 @@ def check_fused(case: dict, report: list) -> None:
     fused = fused_call(case)
     agree = fused_agreement(case)
     err, tol = agree["max_abs"], agree["tol"]
-    split = paged_split(case, fused=True)
+    route = paged_split(case, fused=True)
     log(f"kernel {case['name']}: max_abs_err {err:.3e} on active rows (tol {tol}), worst rel "
         f"L2 of a head {agree['rel_l2']:.3e} (tol {agree['rel_tol']}), pool pages "
         f"byte-equal but the scratch page {agree['pages_equal']}, scratch page holds the "
-        f"inactive rows' writes {agree['scratch_ok']}, {_body(split)} -> "
+        f"inactive rows' writes {agree['scratch_ok']}, {_body(route)} -> "
         f"{'ok' if agree['ok'] else 'FAIL'}")
     if not agree["ok"]:
         raise SystemExit(f"{case['name']}: fused kernel disagrees with its plain version")
@@ -1269,11 +1300,12 @@ def check_fused(case: dict, report: list) -> None:
                            replaces="vcoder_tpu/ops/paged_attention.py:1263", launches=0,
                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by, library_ms=lib_ms, unfused_ms=unfused_ms,
-                           split=split, status="ok"))
+                           body=_body(route), status="ok"))
 
 
 # Phase 9's fused cases (keyword arguments of _fused_case); the first is
-# the report row. All take the kernel's SPLIT body.
+# the report row. The GQA windows of 8 take the kernel's TILE body, the
+# others its SPLIT body.
 FUSED_CASES = [
     dict(name="fused bf16 decode B=8 w=1 L=32@17 H=KH=32 page 64 len 1201-1233", B=8,
          window=1, H=32, KH=32, lengths=DECODE_LENGTHS, seed=11),
@@ -1294,6 +1326,13 @@ FUSED_CASES = [
          active=[True, True, True, False], page=16, quant=True, seed=20),
     dict(name="fused bf16 verify B=2 w=4 page 128 (4 tiles a page)", B=2, window=4, H=32,
          KH=32, lengths=[1204, 300], page=128, seed=21),
+    # C = 4 x 8 = 32 columns: the TILE body, the window a tile of its own.
+    dict(name="fused bf16 GQA 32q/8kv w=8 (C=32), an inactive row, a window across a page",
+         B=4, window=8, H=32, KH=8, lengths=[70, 134, 1205, 37],
+         active=[True, True, True, False], seed=26),
+    dict(name="fused int8 GQA 32q/8kv w=8 (C=32), an inactive row, a window across a page",
+         B=4, window=8, H=32, KH=8, lengths=[70, 134, 1205, 37],
+         active=[True, True, True, False], quant=True, seed=27),
 ]
 
 
@@ -1931,12 +1970,15 @@ def _drive(worker, preps):
     return results, time.perf_counter() - t0
 
 
-def _run_engine(label, cfg, params, turns, *, max_new, **kw):
+def _run_engine(label, cfg, params, turns, *, max_new, profile_first=False, **kw):
     """Build a paged engine and serve each turn -- a list of requests, or a
     function of the previous turn's results -- through
     EngineWorker.from_engine, every counter set to 0 just before the turn and
-    read just after; then shut the worker down and close the engine. Returns
-    (results per turn, stats)."""
+    read just after; then shut the worker down and close the engine. With
+    ``profile_first`` the first turn runs under ``torch.profiler`` and
+    ``stats["profile"]`` holds the device time of each paged kernel by name
+    over it. Logs the served tokens' digest (a reading: batching may differ
+    between runs). Returns (results per turn, stats)."""
     import torch
 
     from vcoder_tpu_torch.ops import flash_attention as fa
@@ -1955,6 +1997,7 @@ def _run_engine(label, cfg, params, turns, *, max_new, **kw):
                    (eng.k_pages, eng.v_pages, eng.k_scale, eng.v_scale) if t is not None) / 2**30
     worker = EngineWorker.from_engine(eng, model_name="vcoder_ds_llava-7b", eos_id=-1)
     results, walls, counts, decode = [], [], [], []
+    paged_ms = None
     try:
         for turn in turns:
             prep_turn = turn(results[-1]) if callable(turn) else turn
@@ -1962,7 +2005,26 @@ def _run_engine(label, cfg, params, turns, *, max_new, **kw):
             fa.launches = va.launches = va.launches_mlp = i4.launches = 0
             pa.reset_launches()
             i8.reset_launches()
-            res, wall = _drive(worker, prep_turn)
+            if profile_first and not results:
+                from torch.autograd import DeviceType
+                from torch.profiler import ProfilerActivity, profile
+
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    res, wall = _drive(worker, prep_turn)
+                    torch.cuda.synchronize()
+                paged_ms, busy = {}, 0.0
+                for e in prof.events():
+                    if e.device_type == DeviceType.CUDA:
+                        busy += e.time_range.elapsed_us() / 1e3
+                        m = re.search(r"paged_attn_\w+<[^>]*>", e.name)
+                        if m:
+                            name = m.group(0)
+                            ms, n = paged_ms.get(name, (0.0, 0))
+                            paged_ms[name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+                paged_ms["device busy"] = (busy, 0)
+            else:
+                res, wall = _drive(worker, prep_turn)
             torch.cuda.synchronize()
             steps = eng.timer.samples.get("decode_step", [])[n_steps0:]
             counts.append(dict(flash=fa.launches, vit=va.launches, mlp=va.launches_mlp,
@@ -1992,10 +2054,42 @@ def _run_engine(label, cfg, params, turns, *, max_new, **kw):
             f"({n_tok} tokens after the first over {dec_s:.2f} s of decode steps); per-step "
             f"wall p50 {step_p50:.2f} ms over {c['decode_dispatches']} steps; "
             f"launches {json.dumps(c)}")
+    digest = hashlib.sha1(json.dumps([r["tokens"] for res in results for r in res])
+                          .encode()).hexdigest()[:16]
     log(f"  engine {label}: pools {pool_gib:.2f} GiB, prefix {json.dumps(stats.get('prefix_cache'))}, "
-        f"preemptions {stats.get('preemptions')}")
+        f"preemptions {stats.get('preemptions')}, tokens sha1 {digest}")
     return results, dict(counts=counts, prefix=stats.get("prefix_cache"), ttft_p50_ms=ttfts,
-                         step_p50_ms=[d[1] for d in decode])
+                         step_p50_ms=[d[1] for d in decode], digest=digest, profile=paged_ms)
+
+
+# Engine C: speculative verify windows of 4, chunked prefill of 128, prefix cache.
+ENGINE_C = dict(speculative=4, chunked_prefill=128, prefix_cache=True)
+
+
+def engine_c_turn2(preps, tok):
+    """Engine C's second turn: the first 4 conversations, each extended by
+    its first answer and a follow-up question."""
+    extra = tok.encode("what else can be seen")[1:]
+
+    def turn2(turn1):
+        return [dataclasses.replace(p, input_ids=list(p.input_ids) + r["tokens"] + extra)
+                for p, r in zip(preps[:4], turn1)]
+
+    return turn2
+
+
+def profile_engine_chunks(cfg, params, preps, tag: str = "profile_engine_chunks") -> dict:
+    """``--profile``: engine C's first turn (4 admissions through chunked
+    prefill windows of 128, then verify windows of 4) under torch.profiler:
+    the paged kernels' device time and launches by kernel name beside the
+    turn's TTFT p50 and launches by window. Printed as one ``<tag>: {...}``
+    JSON line."""
+    _, st = _run_engine(f"C profiled ({tag})", cfg, params, [preps[:4]], max_new=32,
+                        profile_first=True, **ENGINE_C)
+    out = dict(ttft_p50_ms=st["ttft_p50_ms"][0], by_window=st["counts"][0]["by_window"],
+               paged_ms_by_kernel={k: [round(v[0], 4), v[1]] for k, v in st["profile"].items()})
+    log(f"{tag}: " + json.dumps(out))
+    return out
 
 
 def phase_engines(cfg, params, model, tok) -> dict:
@@ -2040,19 +2134,13 @@ def phase_engines(cfg, params, model, tok) -> dict:
         f"tokens {dense_first}/{n} agree, decode tokens {dense_decode}/{n * (max_new - 1)}; "
         f"B vs A decode tokens {agree_b}/{n * (max_new - 1)}; B's first tokens equal A's")
 
-    extra = tok.encode("what else can be seen")[1:]
-
-    def turn2(turn1):
-        return [dataclasses.replace(p, input_ids=list(p.input_ids) + r["tokens"] + extra)
-                for p, r in zip(preps[:4], turn1)]
-
     if "--profile" in sys.argv:
         profile_engine_decode(cfg, preps, [("engine_bf16_decode_step", params, {}),
                                            ("engine_int8_decode_step", params,
                                             {"kv_quant": True})])
+        profile_engine_chunks(cfg, params, preps)
     _, st_c = _run_engine("C (speculative 4, chunked prefill 128, prefix cache)", cfg, params,
-                              [preps[:4], turn2], max_new=max_new, speculative=4,
-                              chunked_prefill=128, prefix_cache=True)
+                          [preps[:4], engine_c_turn2(preps, tok)], max_new=max_new, **ENGINE_C)
     cc = st_c["counts"]
     wins = {w for c in cc for w in c["by_window"]}
     if not {4, 128} <= wins:
@@ -2125,11 +2213,10 @@ def _prefill_routes(params, cfg, tok, pictures, plain: bool = True):
     return lk, lp, plan
 
 
-# Engines D's and E's token digests as served before the paged kernel's
-# SPLIT body (with the tensor-core int4 kernel). D's bf16 pools still take
-# the PAGE body; E's int8 pools now take the SPLIT body, which rounds p
-# against each split's running maximum, so E's may change.
-QUANT_DIGESTS = {"D": "839478c442ce0f96", "E": "604f9eba2da7939e"}
+# Engines D's and E's token digests as last recorded (H100 80GB HBM3): a
+# reading, since batching may differ between runs, and a change of the
+# paged kernel's rounding order changes them.
+QUANT_DIGESTS = {"D": "de744a320f4b8b76", "E": "3571acdd503af2a2"}
 
 
 def phase_quantized(cfg, params, tok) -> dict:
@@ -2228,13 +2315,9 @@ def phase_quantized(cfg, params, tok) -> dict:
             raise SystemExit(f"engine {label}: launches {got} != {want} (or {other} nonzero)")
         for k in totals:
             totals[k] += ce[k]
-        # The served tokens' digest, to compare with other runs (a reading:
-        # batching may differ between runs).
-        digest = hashlib.sha1(json.dumps([r["tokens"] for r in res]).encode()).hexdigest()[:16]
         earlier = QUANT_DIGESTS[label[0]]
-        same = "same as" if digest == earlier else "differs from"
-        log(f"  engine {label}: tokens sha1 {digest} ({same} {earlier}, served before the paged "
-            f"kernel's SPLIT body)")
+        same = "same as" if st["digest"] == earlier else "differs from"
+        log(f"  engine {label}: tokens sha1 {same} {earlier}, the digest last recorded")
         if qp is q4:
             first = [r["tokens"][0] for r in res]
             gen_first = [int(model4.generate([ids], *px, max_new_tokens=1).sequences[0, 0])

@@ -1,5 +1,5 @@
-"""The SPLIT body of the paged kernel (``csrc/paged_attn.cu``: int8 and fused
-calls with C <= 16; K4 and K7) on the CPU.
+"""The SPLIT body of the paged kernel (``csrc/paged_attn.cu``: every call with
+C <= 16 query columns; K3, K4, K7 and K8 at decode and verify) on the CPU.
 
 * ``_split_plan``, the cluster size of the launch, pinned at the 7B (KH=32)
   and 13B (KH=40) decode and verify shapes under the H100's one-wave
@@ -9,8 +9,8 @@ calls with C <= 16; K4 and K7) on the CPU.
   warps, each warp an online softmax over chunks of its keys (p rounded to
   bf16 against the warp's running maximum), the warps merged in the block,
   then the ranks in rank order, a split that saw no key skipped. It is held
-  against the JAX kernels in interpret mode (``carry_paged_attention_multi_q8``
-  and ``carry_paged_attention_fused``) on bf16 queries and bf16 or int8
+  against the JAX kernels in interpret mode (``carry_paged_attention_multi``,
+  ``_multi_q8`` and ``carry_paged_attention_fused``) on bf16 queries and bf16 or int8
   pools, at the card's gates (max-abs 2e-2, and the relative L2 of each
   head's output vector); each case prints the gaps it measured. This pins the rounding divergence of the SPLIT body
   (ROADMAP, deliberate divergences).
@@ -72,24 +72,35 @@ def test_split_plan_stays_within_the_table():
 
 
 def test_split_body_takes_int8_and_fused_calls_up_to_16_columns():
-    assert tpa.takes_split(True, False, 1) and tpa.takes_split(True, False, 16)
-    assert tpa.takes_split(False, True, 4) and tpa.takes_split(True, True, 16)
-    assert not tpa.takes_split(False, False, 1)  # K3 and K8: the PAGE body
-    assert not tpa.takes_split(True, False, 128)  # int8 chunk windows
-    assert not tpa.takes_split(False, True, 64)  # a fused GQA window past 16 columns
+    """Every call of C <= 16 columns takes the SPLIT body, int8 or bf16,
+    fused or not; every call past 16 the TILE body."""
+    for quant, fused, C in ((True, False, 1), (True, False, 16), (False, True, 4),
+                            (True, True, 16), (False, False, 1), (False, False, 16)):
+        assert tpa.body_of(C) == tpa.BODY_SPLIT, (quant, fused, C)
+    for quant, fused, C in ((True, False, 128), (False, True, 64), (False, False, 128),
+                            (False, False, 17)):
+        assert tpa.body_of(C) == tpa.BODY_TILE, (quant, fused, C)
+    assert tpa.SPLIT_MAX_COLUMNS == 16
     assert [tpa._nc(c) for c in (1, 2, 3, 4, 5, 8, 9, 16)] == [1, 2, 4, 4, 8, 8, 16, 16]
 
 
-def test_split_of_sends_page_body_calls_to_split_0():
-    """``split_of`` is the one place that routes: the kernel's ``split``
-    argument is 0 (the PAGE body) for the calls the SPLIT body does not
-    take, decided before the card is asked anything."""
-    q = torch.zeros(8, 1, 32, 128, dtype=torch.bfloat16)
-    assert tpa.split_of(q, 32, 20, quant=False, fused=False) == 0  # K3 / K8 decode
+def test_split_of_sends_page_body_calls_to_split_0(monkeypatch):
+    """``split_of`` is the one place that routes: the calls the earlier PAGE body
+    took now go to the TILE body past 16 columns (cluster 1, decided before
+    the card is asked anything) and to the SPLIT body at decode (the bf16
+    K3 / K8 calls, with the cluster of ``_split_plan``)."""
     chunk = torch.zeros(2, 128, 32, 128, dtype=torch.bfloat16)
-    assert tpa.split_of(chunk, 32, 20, quant=True, fused=False) == 0  # int8 chunk window
+    assert tpa.split_of(chunk, 32, 20, quant=True, fused=False) == (tpa.BODY_TILE, 1)  # int8 chunk
+    assert tpa.split_of(chunk, 32, 20, quant=False, fused=False) == (tpa.BODY_TILE, 1)  # bf16 chunk
     gqa = torch.zeros(2, 8, 32, 128, dtype=torch.bfloat16)
-    assert tpa.split_of(gqa, 8, 20, quant=False, fused=True) == 0  # fused, C = 32
+    assert tpa.split_of(gqa, 8, 20, quant=False, fused=True) == (tpa.BODY_TILE, 1)  # fused, C = 32
+    monkeypatch.setattr(tpa, "_SPLIT", {})
+    monkeypatch.setattr(tpa, "_capacity", lambda idx, quant, fused, C: H100_CAPACITY_C1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    q = torch.zeros(8, 1, 32, 128, dtype=torch.bfloat16)
+    assert tpa.split_of(q, 32, 20, quant=False, fused=False) == (tpa.BODY_SPLIT, 1)  # K3 / K8 decode
+    q1 = torch.zeros(1, 1, 32, 128, dtype=torch.bfloat16)
+    assert tpa.split_of(q1, 32, 20, quant=False, fused=False) == (tpa.BODY_SPLIT, 8)  # B=1
 
 
 # ---------------------------------------------------------------------------
@@ -287,6 +298,28 @@ def test_split_emulation_matches_jax_q8(window, S):
     ref = np.asarray(ref.astype(jnp.float32))
     gap, rel = _gaps(out.numpy(), ref)
     print(f"SPLIT body emulation vs JAX int8, window {window}, S={S}: max-abs {gap:.3e}, "
+          f"worst rel L2 of a head {rel:.3e}")
+    assert gap <= TOL and rel <= REL_TOL
+    assert not out[0].any()  # the length-0 row gives zeros
+
+
+@pytest.mark.parametrize("window", [1, 4])
+@pytest.mark.parametrize("S", [1, 3])
+def test_split_emulation_matches_jax_bf16(window, S):
+    """K3 and K8's SPLIT body (bf16 pools, unfused) against
+    ``carry_paged_attention_multi`` in interpret mode: GQA (8 query heads
+    over 4), a length-0 row."""
+    _, q, table, lengths, pools = _inputs(window, False, seed=20 * window + S)
+    layer = 1
+    ref, *_ = jpa.carry_paged_attention_multi(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(pools[0], jnp.bfloat16),
+        jnp.asarray(pools[1], jnp.bfloat16), jnp.asarray(table), jnp.asarray(lengths),
+        jnp.int32(layer), window=window, interpret=True)
+    a = _pool_args(pools, layer)
+    out = split_emulation(_t(q), a["kp"], a["vp"], _t(table), _t(lengths), window=window, S=S)
+    ref = np.asarray(ref.astype(jnp.float32))
+    gap, rel = _gaps(out.numpy(), ref)
+    print(f"SPLIT body emulation vs JAX bf16, window {window}, S={S}: max-abs {gap:.3e}, "
           f"worst rel L2 of a head {rel:.3e}")
     assert gap <= TOL and rel <= REL_TOL
     assert not out[0].any()  # the length-0 row gives zeros

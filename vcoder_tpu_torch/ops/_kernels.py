@@ -58,7 +58,7 @@ _SIGNATURES = {
         + [_P] * 6  # fused: nk nv nks nvs positions active
         + [_I] * 7  # B window H KH n_pages page P_max
         + [_L] * 3  # q batch, token, head strides
-        + [_F, _I, _I, _I, _P],  # scale quant fused split stream
+        + [_F, _I, _I, _I, _I, _P],  # scale quant fused body cluster stream
         "paged_attn_capacity": [_I] * 3 + [_P],  # quant fused C blocks[8]
     },
     "int4_matmul": {

@@ -55,9 +55,12 @@ engines' bf16 decode, see :func:`carry_paged_attention`) and
 ``launches_fused`` (K7: fused append + attend, either pool type) count
 kernel launches; ``launches_by_window`` counts the stacked and fused
 launches by window. What bounds the kernel and what its design does about it
-is in the note at the top of ``csrc/paged_attn.cu``: int8 and fused calls
-with ``C = group * window <= 16`` take its SPLIT body (a row's pages split
-over a cluster of :func:`_split_plan` blocks), the others its PAGE body.
+is in the note at the top of ``csrc/paged_attn.cu``: a call with ``C = group
+* window <= 16`` query columns (decode, verify) takes its SPLIT body (a row's
+pages split over a cluster of :func:`_split_plan` blocks), a call with more
+(chunk windows, fused GQA windows past 16 columns) its TILE body (tensor
+cores over 64-key tiles loaded from the page table); :func:`split_of` is
+the one place that routes.
 
 :data:`FUSED_APPEND` is read at call time by ``models/llama.py`` (the JAX
 package reads its flag when a step is traced); it defaults to False, as
@@ -97,10 +100,15 @@ NEG_INF = -1e30
 #: one kernel (:func:`carry_paged_attention_fused`); read at call time.
 FUSED_APPEND = False
 
-# The SPLIT body (csrc/paged_attn.cu): at most _MAX_SPLIT blocks a cluster;
-# per device and instantiation (quant, fused, NC) the blocks one wave holds
-# with clusters of 1 .. _MAX_SPLIT, asked of the card once; and the cluster
-# size chosen per launch shape.
+# The kernel's bodies (csrc/paged_attn.cu, its entry point's `body` codes).
+# The SPLIT body is built for at most SPLIT_MAX_COLUMNS query columns and
+# clusters of at most _MAX_SPLIT blocks; per device and instantiation
+# (quant, fused, NC) the blocks one wave holds with clusters of 1 ..
+# _MAX_SPLIT, asked of the card once; and the cluster size chosen per
+# launch shape. The TILE body takes any call, one block a cluster.
+BODY_SPLIT = 1
+BODY_TILE = 2
+SPLIT_MAX_COLUMNS = 16
 _MAX_SPLIT = 8
 _CAPACITY: dict = {}
 _SPLIT: dict = {}
@@ -302,11 +310,11 @@ def carry_paged_attention_fused_ref(
 # ---------------------------------------------------------------------------
 
 
-def takes_split(quant: bool, fused: bool, C: int) -> bool:
-    """Whether a call takes the kernel's SPLIT body: int8 or fused, with
-    ``C = group * window`` query columns at most 16 (the calls that body is
-    built for, ``split_built`` in ``csrc/paged_attn.cu``)."""
-    return bool(quant or fused) and C <= 16
+def body_of(C: int) -> int:
+    """The body of a call with ``C = group * window`` query columns: SPLIT
+    up to :data:`SPLIT_MAX_COLUMNS` (decode and verify), TILE past it
+    (chunk windows, fused GQA windows). The routing rule, in one place."""
+    return BODY_SPLIT if C <= SPLIT_MAX_COLUMNS else BODY_TILE
 
 
 def _nc(C: int) -> int:
@@ -344,20 +352,22 @@ def _capacity(idx: int, quant: bool, fused: bool, C: int) -> tuple:
     return _CAPACITY[key]
 
 
-def split_of(q: torch.Tensor, KH: int, p_max: int, *, quant: bool, fused: bool) -> int:
-    """The kernel's ``split`` argument for a launch on ``q`` [B, k, H, D] over
-    ``KH`` KV heads and a table of width ``p_max``: the SPLIT body's cluster
-    size, :func:`_split_plan` under the card's capacity, or 0 for the PAGE
-    body. The one place that routes a call between the bodies."""
+def split_of(q: torch.Tensor, KH: int, p_max: int, *, quant: bool, fused: bool) -> tuple:
+    """The kernel's ``(body, cluster)`` arguments for a launch on ``q`` [B, k,
+    H, D] over ``KH`` KV heads and a table of width ``p_max``: the body of
+    :func:`body_of`, and for the SPLIT body its cluster size (:func:`_split_plan`
+    under the card's capacity), 1 for the TILE body. The one place that
+    routes a call between the bodies; the card is asked only for the SPLIT
+    body's capacity."""
     B, k, H, _ = q.shape
     C = (H // KH) * k
-    if not takes_split(quant, fused, C):
-        return 0
+    if body_of(C) == BODY_TILE:
+        return BODY_TILE, 1
     idx = q.device.index if q.device.index is not None else torch.cuda.current_device()
     key = (idx, B, KH, C, p_max, bool(quant), bool(fused))
     if key not in _SPLIT:
         _SPLIT[key] = _split_plan(B, KH, C, p_max, _capacity(idx, quant, fused, C))
-    return _SPLIT[key]
+    return BODY_SPLIT, _SPLIT[key]
 
 
 def launch_paged_attn(
@@ -424,7 +434,7 @@ def launch_paged_attn(
         ptrs = [nk.data_ptr(), nv.data_ptr(), nks.data_ptr() if quant else None,
                 nvs.data_ptr() if quant else None, pos.data_ptr(), act.data_ptr()]
     out = torch.empty((B, k, H, D), dtype=q.dtype, device=q.device)
-    split = split_of(q, KH, table.shape[1], quant=quant, fused=fused is not None)
+    body, cluster = split_of(q, KH, table.shape[1], quant=quant, fused=fused is not None)
     fn = _kernels.lib("paged_attn").paged_attn
     err = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -432,7 +442,7 @@ def launch_paged_attn(
         table.data_ptr(), lens.data_ptr(), out.data_ptr(), *ptrs,
         B, window, H, KH, n_pages, page, table.shape[1],
         q.stride(0), q.stride(1), q.stride(2),
-        float(D**-0.5), int(quant), int(fused is not None), split,
+        float(D**-0.5), int(quant), int(fused is not None), body, cluster,
         _kernels.stream_handle(q.device),
     )
     _kernels.check(err, "paged_attn")
