@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``vcoder_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py                  # every phase (1-4, 6, 7, 8, 9, 5)
+    python3 chip_smoke.py                  # every phase (1-4, 6, 7, 8, 9, 5, 10)
     python3 chip_smoke.py --profile        # also torch.profiler: two B=1 requests,
                                            # the paged engine's decode step at B=8,
                                            # in bf16, with int4/int8 weights and with
@@ -122,6 +122,30 @@ Phases, in order; any failure exits non-zero:
    directory and of an adapter-only directory (``model_base``), and
    ``generate`` runs on each; their prefill logits through the kernels agree
    with the plain route.
+10. Surfaces, on the phase-4 weights and requests (greedy, EOS off):
+   every token of ``generate(lookahead=8)``, replayed on the decode path
+   with lookahead's own prefix, must be that row's top logit or short of
+   it by no more than one bf16 ulp or the spread between two correct
+   routes there (decode steps against one forward over the sequence); so
+   it equals greedy's tokens up to such a near-tie (each logged with its
+   gap; verify dispatches, tokens accepted per dispatch and decode tok/s
+   logged beside greedy's);
+   ``generate(num_beams=4)`` twice must agree, and ``_beam_generate`` at
+   W=1 must equal greedy; ``generate_stream`` at lookahead 0 and 8 must end
+   in ``generate``'s text with growing chunks; each gated on 32 flash
+   launches per prefill, 23 ViT blocks per tower pass and no paged launch.
+   Then ``save_pretrained`` writes the weights with a tokenizer that gives
+   every id a word (``full_vocab_tokenizer``) to a temporary
+   ``vcoder_ds_llava-v1.5-7b`` directory. The pictures go out as PNGs with
+   every row Paeth-filtered (their decode time logged). They are served over
+   HTTP by ``server.serve(Chat(dir))`` (one greedy request, default
+   lookahead 8, its text equal to ``generate(lookahead=8)``'s)
+   and by ``engine_server``'s worker at ``main()``'s defaults (page 128,
+   max_len 4096; 4 concurrent requests; gated on 32 K8 launches per decode
+   step and 32 flash / 23 ViT per admission), then by the CLI as a
+   subprocess (two turns on stdin); every chunk ``error_code`` 0 and every
+   surface's first token equal to ``generate``'s. Logs the seconds of each
+   load and of the phase, the TTFTs, tok/s and token digests.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -1892,7 +1916,8 @@ def phase_main_path(cfg, params, model, tok) -> dict:
         decode_tps = (max_new - 1) / max(total - ttft, 1e-9)
         reqs.append(dict(hw=[h, w], prompt_ids=len(ids), ttft_ms=ttft * 1e3,
                          total_ms=total * 1e3, decode_tok_s=decode_tps,
-                         tokens=seqs[0, :8].tolist()))
+                         tokens=seqs[0, :8].tolist(), pictures=pictures, ids=ids,
+                         greedy=seqs[0].tolist()))
         log(f"  request {h}x{w}: {len(ids)} prompt ids, TTFT {ttft * 1e3:.1f} ms, "
             f"{max_new} tokens in {total * 1e3:.1f} ms, decode {decode_tps:.1f} tok/s, "
             f"first tokens {seqs[0, :8].tolist()}")
@@ -1916,7 +1941,7 @@ def phase_main_path(cfg, params, model, tok) -> dict:
         f"logits rel L2 {rel:.3e}, argmax {int(lk.argmax())} vs {int(lp.argmax())}")
     if "--profile" in sys.argv:
         profile_requests(model, tok, _images(np.random.RandomState(8), 480, 640))
-    return {"flash_fwd": n_flash, "vit_block": n_vit, "ttft_p50_ms": ttft_p50}
+    return {"flash_fwd": n_flash, "vit_block": n_vit, "ttft_p50_ms": ttft_p50, "requests": reqs}
 
 
 ENGINE_SIZES = [(480, 640), (720, 540), (375, 500), (600, 800), (512, 384), (333, 444),
@@ -2002,9 +2027,7 @@ def _run_engine(label, cfg, params, turns, *, max_new, profile_first=False, **kw
         for turn in turns:
             prep_turn = turn(results[-1]) if callable(turn) else turn
             n_steps0 = len(eng.timer.samples.get("decode_step", []))
-            fa.launches = va.launches = va.launches_mlp = i4.launches = 0
-            pa.reset_launches()
-            i8.reset_launches()
+            _reset_counters()
             if profile_first and not results:
                 from torch.autograd import DeviceType
                 from torch.profiler import ProfilerActivity, profile
@@ -2969,6 +2992,458 @@ def phase_checkpoint() -> None:
             del model
 
 
+# Phase 10: the checkpoint directory's name routes Chat (seg and depth from
+# "vcoder" and "ds"); the CLI's first turn is PROMPT.
+SURFACE_DIR = "vcoder_ds_llava-v1.5-7b"
+CLI_TURNS = ("What objects can be seen in the image? Perceive as done for panoptic "
+             "segmentation.\nWhat else can be seen?\n\n")
+SURFACE_NEW = 32
+
+
+def _reset_counters() -> None:
+    from vcoder_tpu_torch.ops import flash_attention as fa
+    from vcoder_tpu_torch.ops import int4_matmul as i4
+    from vcoder_tpu_torch.ops import int8_matmul as i8
+    from vcoder_tpu_torch.ops import paged_attention as pa
+    from vcoder_tpu_torch.ops import vit_attention as va
+
+    fa.launches = va.launches = va.launches_mlp = i4.launches = 0
+    pa.reset_launches()
+    i8.reset_launches()
+
+
+def _counters() -> dict:
+    from vcoder_tpu_torch.ops import flash_attention as fa
+    from vcoder_tpu_torch.ops import paged_attention as pa
+    from vcoder_tpu_torch.ops import vit_attention as va
+
+    return dict(flash=fa.launches, vit=va.launches, k8=pa.launches_k8,
+                paged=pa.launches_bf16 + pa.launches_q8 + pa.launches_k8 + pa.launches_fused)
+
+
+def _dense_gate(label: str, prefills: int) -> dict:
+    """The counters of a dense path (generate, beams, streams, Chat): 32
+    flash launches per prefill, 23 ViT blocks per tower pass, no paged one."""
+    c = _counters()
+    if c["flash"] != 32 * prefills or c["vit"] != 23 * prefills or c["paged"]:
+        raise SystemExit(f"surfaces {label}: launches {c} over {prefills} prefills, want "
+                         f"32 flash and 23 ViT each and no paged launch")
+    return c
+
+
+def full_vocab_tokenizer(cfg):
+    """PROMPT's words, then one word per remaining id (``x<id>``): every
+    generated token decodes to a word of its own, so served text shows the
+    tokens. PROMPT's ids equal phase 4's tokenizer's."""
+    from vcoder_tpu_torch.simple_tokenizer import SimpleTokenizer
+
+    tok = SimpleTokenizer.build_from_texts([PROMPT])
+    for i in range(len(tok.vocab), cfg.text.vocab_size):
+        tok.convert_tokens_to_ids(f"x{i}")
+    return tok
+
+
+def _digest(obj) -> str:
+    return hashlib.sha1(json.dumps(obj).encode()).hexdigest()[:16]
+
+
+def _replay_gaps(params, cfg, ids, px, tokens) -> list:
+    """``tokens``, a continuation of ``ids``, on two routes of the model with
+    ``tokens`` themselves as the prefix: decode steps (prefill, then one
+    step per token, each fed its predecessor) and one forward over the
+    whole sequence, as training runs it. At every generated index ``j``:
+    the decode row's top logit less its logit of ``tokens[j]`` (0 on a
+    greedy path), the largest difference between the two routes' rows (the
+    rounding spread of two correct routes there), and one bf16 ulp of the
+    top logit."""
+    import math
+
+    import torch
+
+    from vcoder_tpu_torch import generation as gen_mod
+    from vcoder_tpu_torch.models import llama as llama_mod
+    from vcoder_tpu_torch.models import vcoder as model_mod
+
+    use_emb = cfg.use_vcoder_lm_emb
+    with torch.no_grad():
+        _, plan, arrays, im, sg, dp = gen_mod._prepare_inputs(params, cfg, [ids], *px)
+        logits, cache = gen_mod._prefill(params, cfg, arrays, im, sg, dp,
+                                         cache_len=plan.seq_len + len(tokens),
+                                         use_vcoder_emb=plan.use_vcoder_emb and use_emb,
+                                         attn_impl="auto")
+        rows = [logits[0].float()]
+        for j in range(1, len(tokens)):
+            prev = torch.tensor([tokens[j - 1]], device=logits.device)
+            logits, cache = model_mod.decode_step(params, cfg, prev, arrays["seq_lens"] + j - 1,
+                                                  cache)
+            rows.append(logits[0].float())
+        _, plan2, a2, im, sg, dp = gen_mod._prepare_inputs(params, cfg, [ids + tokens[:-1]], *px)
+        emb = model_mod.assemble_embeddings(
+            params, cfg, a2["safe_ids"], a2["is_text"], a2["vis_idx"],
+            model_mod.encode_vision(params, cfg, im, sg, dp, attn_impl="auto"),
+            use_vcoder_emb=plan2.use_vcoder_emb and use_emb)
+        hidden, _ = llama_mod.llama_forward(params["lm"], cfg.text, emb,
+                                            attn_mask=a2["attn_mask"],
+                                            position_ids=a2["position_ids"], attn_impl="auto")
+        s0 = int(arrays["seq_lens"][0]) - 1
+        whole = llama_mod.lm_head(params["lm"], hidden[:, s0 : s0 + len(tokens)])[0].float()
+    out = []
+    for j, t in enumerate(tokens):
+        top = rows[j].max().item()
+        out.append((top - rows[j][t].item(), (rows[j] - whole[j]).abs().max().item(),
+                    2.0 ** (math.floor(math.log2(abs(top))) - 7)))
+    return out
+
+
+def surface_modes(cfg, params, model, tok, reqs) -> dict:
+    """Phase 10 (a): lookahead, beams and streams on phase 4's requests,
+    in memory, greedy with EOS off, each gated on its launch counters."""
+    import torch
+
+    from vcoder_tpu_torch import generation as gen_mod
+    from vcoder_tpu_torch import speculative as spec
+    from vcoder_tpu_torch.preprocess import process_images
+
+    n = SURFACE_NEW
+    totals = dict(flash=0, vit=0, k8=0)
+
+    def add(c):
+        for k in totals:
+            totals[k] += c[k]
+
+    out = []
+    for i, r in enumerate(reqs):
+        ids, greedy = r["ids"], r["greedy"]
+        px = [process_images([a], dtype=torch.bfloat16, device="cuda") for a in r["pictures"]]
+        _reset_counters()
+        t0 = time.perf_counter()
+        look = model.generate([ids], *px, max_new_tokens=n, lookahead=8).sequences[0].tolist()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        add(_dense_gate(f"lookahead request {i}", 1))
+        j = next((k for k in range(n) if look[k] != greedy[k]), None)
+        # Every one of lookahead's tokens, on its own prefix. Its verify
+        # windows round otherwise than decode steps, so near a tie it may
+        # take the decode path's runner-up: a token is accepted where it is
+        # the decode row's top, or short of it by no more than one bf16 ulp
+        # (logits are bf16 values: lm_head rounds, as in JAX) or than the
+        # spread measured there between two correct routes (decode steps
+        # and one forward over the sequence). A wrong acceptance, trim or
+        # history write puts a token short by about the spread of the
+        # logits themselves. Up to the first divergence the prefix is
+        # greedy's, so there the gap is greedy's own.
+        gaps = _replay_gaps(params, cfg, ids, px, look)
+        ties = [dict(position=k, gap=g, spread=d, ulp=u)
+                for k, (g, d, u) in enumerate(gaps) if g != 0]
+        bad = [t for t in ties if not t["gap"] <= max(t["ulp"], t["spread"])]
+        spreads = [d for _, d, _ in gaps]
+        log(f"  lookahead request {i}: "
+            f"{'equal to greedy' if j is None else f'first divergence from greedy at token {j}'};"
+            f" all {n} tokens replayed with lookahead's own prefix: {len(ties)} not the decode "
+            f"row's top logit, at (position, top less the token's logit, two routes' spread, "
+            f"one bf16 ulp) {[(t['position'], t['gap'], t['spread'], t['ulp']) for t in ties]}; "
+            f"two routes' spread over the {n} rows {min(spreads):.4g}..{max(spreads):.4g}")
+        if bad:
+            raise SystemExit(f"surfaces: lookahead's tokens of request {i} fall below the decode "
+                             f"path's top logit by more than one ulp and the routes' spread at "
+                             f"{bad}")
+        _, n_gen, dispatches = spec.generate_speculative(params, cfg, [ids], *px,
+                                                         max_new_tokens=n, lookahead=8,
+                                                         poll_every=1)
+        per_dispatch = (int(n_gen[0]) - 1) / dispatches
+        # The prefill is greedy's: decode time is the request's less phase
+        # 4's TTFT of the same request.
+        tps = (n - 1) / max(total - r["ttft_ms"] / 1e3, 1e-9)
+        log(f"  lookahead 8 request {i}: {dispatches} verify dispatches for {int(n_gen[0]) - 1} tokens after the first "
+            f"({per_dispatch:.2f} accepted per dispatch), {n} tokens in {total * 1e3:.1f} ms, "
+            f"decode {tps:.1f} tok/s (greedy {r['decode_tok_s']:.1f}), host clock")
+
+        _reset_counters()
+        t0 = time.perf_counter()
+        b1 = model.generate([ids], *px, max_new_tokens=n, num_beams=4, length_penalty=1.0)
+        torch.cuda.synchronize()
+        beam_s = time.perf_counter() - t0
+        b2 = model.generate([ids], *px, max_new_tokens=n, num_beams=4, length_penalty=1.0)
+        _, plan, arrays, im, sg, dp = gen_mod._prepare_inputs(params, cfg, [ids], *px)
+        w1 = gen_mod._beam_generate(params, cfg, arrays, im, sg, dp, None, max_new_tokens=n,
+                                    num_beams=1, length_penalty=1.0,
+                                    eos_id=cfg.text.eos_token_id,
+                                    use_vcoder_emb=plan.use_vcoder_emb and cfg.use_vcoder_lm_emb,
+                                    attn_impl="auto")[0].tolist()
+        torch.cuda.synchronize()
+        add(_dense_gate(f"beams request {i}", 3))
+        beams = b1.sequences[0].tolist()
+        if beams != b2.sequences[0].tolist():
+            raise SystemExit(f"surfaces: two beam searches of request {i} disagree")
+        if w1 != greedy:
+            raise SystemExit(f"surfaces: beam search with W=1 differs from greedy on request {i}")
+        log(f"  beams request {i}: W=4 twice identical ({beam_s:.2f} s each, host clock), "
+            f"{sum(int(a != b) for a, b in zip(beams, greedy))}/{n} tokens off greedy's path, "
+            f"W=1 equal to greedy; tokens sha1 {_digest(beams)}")
+
+        for la, ref in ((0, greedy), (8, look)):
+            want = tok.decode(ref, skip_special_tokens=True).strip()
+            _reset_counters()
+            t0 = time.perf_counter()
+            chunks, first = [], None
+            for text in gen_mod.generate_stream(params, cfg, [ids], *px, tokenizer=tok,
+                                                max_new_tokens=n, temperature=0.0, lookahead=la):
+                first = first or time.perf_counter() - t0
+                chunks.append(text)
+            torch.cuda.synchronize()
+            add(_dense_gate(f"stream lookahead {la} request {i}", 1))
+            if not chunks or chunks[-1].strip() != want:
+                raise SystemExit(f"surfaces: stream (lookahead {la}) of request {i} ends in "
+                                 f"{chunks[-1:]!r}, generate's text is {want!r}")
+            if not all(b.startswith(a) for a, b in zip(chunks, chunks[1:])):
+                raise SystemExit(f"surfaces: stream (lookahead {la}) chunks do not grow")
+            log(f"  stream lookahead {la} request {i}: {len(chunks)} chunks, first after "
+                f"{first * 1e3:.1f} ms, whole {(time.perf_counter() - t0) * 1e3:.1f} ms, final "
+                f"text equal to generate's")
+        out.append(dict(lookahead=look, ties=ties, accepted_per_dispatch=per_dispatch,
+                        lookahead_tok_s=tps, greedy_tok_s=r["decode_tok_s"],
+                        dispatches=dispatches))
+    return dict(requests=out, counts=totals)
+
+
+def _http_stream(url: str, params: dict, timeout: float = 300.0):
+    """POST ``params``; returns [(seconds since the POST, payload)] per
+    NUL-framed chunk, read as it arrives."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(params).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    out, buf = [], b""
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        while True:
+            data = r.read1(65536)
+            if not data:
+                break
+            buf += data
+            while b"\0" in buf:
+                chunk, buf = buf.split(b"\0", 1)
+                out.append((time.perf_counter() - t0, json.loads(chunk)))
+    return out
+
+
+def _served_gate(label: str, chunks, first_text: str, n: int) -> list:
+    """Every chunk error_code 0, ``n`` chunks, the first one's text the
+    prompt plus generate's first token. Returns the served answer's words."""
+    bad = [c for _, c in chunks if c.get("error_code") != 0]
+    if bad or len(chunks) != n:
+        raise SystemExit(f"surfaces {label}: {len(chunks)} chunks (want {n}), errors {bad[:2]}")
+    if chunks[0][1]["text"] != PROMPT + first_text:
+        raise SystemExit(f"surfaces {label}: first chunk {chunks[0][1]['text'][len(PROMPT):]!r}, "
+                         f"generate's first token reads {first_text!r}")
+    return chunks[-1][1]["text"][len(PROMPT):].split()
+
+
+@contextlib.contextmanager
+def _serving(httpd):
+    import threading
+
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=60)
+
+
+def phase_surfaces(cfg, held: list, tok, reqs) -> dict:
+    """Phase 10: generate's other modes on the phase-4 weights (``held`` =
+    [params, model], dropped once the checkpoint is written), then the
+    serving surfaces from one checkpoint directory: the Chat-based HTTP
+    worker, the engine worker at ``main()``'s defaults under 4 concurrent
+    requests, and the CLI as a subprocess. Returns the launch totals."""
+    import base64
+    import gc
+    import shutil
+    import threading
+    import urllib.request
+
+    import torch
+
+    from vcoder_tpu_torch.checkpoint import save_pretrained
+    from vcoder_tpu_torch.png import encode_png, unfilter_library
+    from vcoder_tpu_torch.preprocess import process_images
+    from vcoder_tpu_torch.serve import engine_server, server
+    from vcoder_tpu_torch.serve.chat import Chat, load_image_from_base64
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  device memory at the start: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated, peak so far {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    params, model = held
+    n = SURFACE_NEW
+    modes = surface_modes(cfg, params, model, tok, reqs)
+    totals = dict(modes["counts"])
+    laps = {"modes": round(time.perf_counter() - t_phase, 1)}
+
+    # A fourth request for the engine worker (new pictures, so its tower
+    # pass is not served from the vision cache), and generate's first token
+    # on each request.
+    pictures = [r["pictures"] for r in reqs] + [_images(np.random.RandomState(23), 600, 800)]
+    ids = reqs[0]["ids"]
+    firsts = [r["greedy"][0] for r in reqs]
+    px4 = [process_images([a], dtype=torch.bfloat16, device="cuda") for a in pictures[3]]
+    firsts.append(int(model.generate([ids], *px4, max_new_tokens=1).sequences[0, 0]))
+    first_texts = [tok.decode([t], skip_special_tokens=True) for t in firsts]
+    # Every row Paeth-filtered: the filter client encoders (libpng's
+    # adaptive choice) give most rows of a photo, and the decoder's slowest.
+    t0 = time.perf_counter()
+    unfilter_library()
+    laps["png_build"] = round(time.perf_counter() - t0, 2)
+    b64 = [[base64.b64encode(encode_png(a, filter_type=4)).decode() for a in p]
+           for p in pictures]
+    decode_ms = []
+    for k, p in enumerate(pictures):
+        t0 = time.perf_counter()
+        got = [load_image_from_base64(x) for x in b64[k]]
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        if not all(np.array_equal(g, np.broadcast_to(a[..., None] if a.ndim == 2 else a, g.shape))
+                   for g, a in zip(got, p)):
+            raise SystemExit(f"surfaces: request {k}'s PNGs do not decode to their pictures")
+    log(f"  PNG (Paeth rows): row-filter library built in {laps['png_build']} s; base64 decode "
+        f"+ PNG decode of each request's three pictures "
+        f"{', '.join(f'{m:.1f}' for m in decode_ms)} ms (host clock; inside each TTFT below)")
+
+    def request(k):
+        return {"prompt": PROMPT, "images": [b64[k][0]], "segs": [b64[k][1]],
+                "depths": [b64[k][2]], "temperature": 0.0, "max_new_tokens": n, "stop": "</s>"}
+
+    tmp = tempfile.mkdtemp(prefix="vcoder_surfaces_")
+    try:
+        d = os.path.join(tmp, SURFACE_DIR)
+        free = shutil.disk_usage(tmp).free / 2**30
+        t0 = time.perf_counter()
+        save_pretrained(d, params, cfg)
+        tok.save_pretrained(d)
+        laps["save"] = round(time.perf_counter() - t0, 1)
+        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) / 2**30
+        log(f"  save_pretrained: {size:.2f} GiB in {laps['save']} s ({free:.0f} GiB free before)")
+        held.clear()
+        del params, model, px4
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The Chat-based server: one greedy request (the default lookahead 8).
+        t0 = time.perf_counter()
+        chat = Chat(d)
+        laps["chat_load"] = round(time.perf_counter() - t0, 1)
+        if not (chat.is_seg and chat.is_depth):
+            raise SystemExit(f"surfaces: Chat did not route {SURFACE_DIR} to seg and depth")
+        _reset_counters()
+        with _serving(server.serve(chat, "127.0.0.1", 0)) as base:
+            chunks = _http_stream(f"{base}/worker_generate_stream", request(0))
+        c = _dense_gate("Chat server", 1)
+        for k in totals:
+            totals[k] += c[k]
+        words = _served_gate("Chat server", chunks, first_texts[0], n)
+        want = tok.decode(modes["requests"][0]["lookahead"]).strip()
+        if " ".join(words) != want:
+            raise SystemExit(f"surfaces Chat server: served {' '.join(words)!r}, "
+                             f"generate(lookahead=8) reads {want!r}")
+        log(f"  Chat server: loaded in {laps['chat_load']} s; {len(chunks)} chunks, error_code 0, "
+            f"first after {chunks[0][0] * 1e3:.1f} ms, last after {chunks[-1][0] * 1e3:.1f} ms "
+            f"(host clock); first token equal to generate's; text equal to "
+            f"generate(lookahead=8)'s; served tokens sha1 {_digest(words)}")
+        del chat
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The engine worker at main()'s defaults, 4 concurrent requests.
+        args = engine_server.build_parser().parse_args(["--model-path", d])
+        t0 = time.perf_counter()
+        worker = engine_server.worker_from_args(args)
+        laps["engine_load"] = round(time.perf_counter() - t0, 1)
+        eng = worker.engine
+        pool_gib = (eng.k_pages.numel() * eng.k_pages.element_size() * 2) / 2**30
+        try:
+            steps0 = len(eng.timer.samples.get("decode_step", []))
+            _reset_counters()
+            results = [None] * 4
+            with _serving(engine_server.serve(worker, "127.0.0.1", 0)) as base:
+                def client(k):
+                    results[k] = _http_stream(f"{base}/worker_generate_stream", request(k))
+
+                t0 = time.perf_counter()
+                threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+                wall = time.perf_counter() - t0
+                if any(t.is_alive() for t in threads) or None in results:
+                    raise SystemExit("surfaces: an engine worker request did not finish")
+                with urllib.request.urlopen(f"{base}/stats", timeout=60) as st:
+                    stats = json.loads(st.read())
+            steps = len(eng.timer.samples.get("decode_step", [])) - steps0
+            c = _counters()
+        finally:
+            worker.shutdown()
+            eng.close()
+        if (c["flash"] != 32 * 4 or c["vit"] != 23 * 4 or c["k8"] != 32 * steps
+                or c["paged"] != c["k8"]):
+            raise SystemExit(f"surfaces engine worker: launches {c} over 4 admissions and "
+                             f"{steps} decode steps, want 32 flash and 23 ViT per admission "
+                             f"and 32 K8 per step")
+        for k in totals:
+            totals[k] += c[k]
+        served = [_served_gate(f"engine worker request {k}", results[k], first_texts[k], n)
+                  for k in range(4)]
+        ttfts = [r[0][0] * 1e3 for r in results]
+        log(f"  engine worker (page {args.page_size}, max_len {args.max_len}, max_batch "
+            f"{args.max_batch}, bf16 pools {pool_gib:.2f} GiB): loaded and warmed in "
+            f"{laps['engine_load']} s; 4 concurrent requests x {n} tokens in {wall:.2f} s, "
+            f"{4 * n / wall:.1f} tok/s aggregate (host clock, prefill included); TTFT "
+            f"{', '.join(f'{t:.1f}' for t in ttfts)} ms; {steps} decode steps, launches "
+            f"{json.dumps(c)}; decode step timer {json.dumps(stats['timers'].get('decode_step'))}; "
+            f"every chunk error_code 0, first tokens equal to generate's; served tokens sha1 "
+            f"{_digest(served)}")
+        del worker, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The CLI as a program: two turns on stdin, request 0's pictures.
+        files = []
+        for name, a in zip(("image", "seg", "depth"), pictures[0]):
+            files.append(os.path.join(tmp, f"{name}.png"))
+            with open(files[-1], "wb") as f:
+                f.write(encode_png(a, filter_type=4))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "vcoder_tpu_torch.serve.cli", "--model-path", d,
+             "--image-file", files[0], "--seg-file", files[1], "--depth-file", files[2],
+             "--temperature", "0", "--max-new-tokens", str(n)],
+            input=CLI_TURNS, capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        laps["cli"] = round(time.perf_counter() - t0, 1)
+        answers = [line.split("ASSISTANT: ", 1)[1] for line in proc.stdout.splitlines()
+                   if "ASSISTANT: " in line]
+        if proc.returncode != 0 or len(answers) != 2 or "exit..." not in proc.stdout:
+            raise SystemExit(f"surfaces CLI: exit {proc.returncode}, {len(answers)} answers\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        if not answers[0].startswith(first_texts[0]):
+            raise SystemExit(f"surfaces CLI: first answer {answers[0][:40]!r} does not start "
+                             f"with generate's first token {first_texts[0]!r}")
+        log(f"  CLI: two turns in {laps['cli']} s (a subprocess: start, load, preprocess, two "
+            f"streamed answers of {n} tokens); first token equal to generate's; answers sha1 "
+            f"{_digest(answers)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    laps["phase"] = round(time.perf_counter() - t_phase, 1)
+    log(f"  phase 10 seconds: {json.dumps(laps)}; device memory peak in the phase "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -3019,8 +3494,8 @@ def main() -> int:
     log("fused append, fused MLP and multi-LoRA (phase 9): VCoder-DS-7B, the phase-4 weights")
     p9_counts = phase_fused_lora(cfg, params, model, tok, engine_a, main_counts["ttft_p50_ms"])
     lap("fused_lora")
+    held = [params, model]  # phase 10 drops them once its checkpoint is written
     del params, model
-    torch.cuda.empty_cache()
     # Each entry's launches: the sum over the driven paths, each counted from
     # 0 just before it ran and read just after.
     launches = {
@@ -3039,11 +3514,17 @@ def main() -> int:
         "paged_attn_fused": p9_counts["fused"],
         "vit_mlp": p9_counts["mlp"],
     }
+    phase_checkpoint()
+    lap("checkpoint")
+    log("surfaces (phase 10): VCoder-DS-7B bf16, the phase-4 weights and requests")
+    p10 = phase_surfaces(cfg, held, full_vocab_tokenizer(cfg), main_counts["requests"])
+    lap("surfaces")
+    launches["flash_fwd"] += p10["flash"]
+    launches["vit_block"] += p10["vit"]
+    launches["paged_attn_k8"] += p10["k8"]
     for entry in report:
         entry["launches"] = launches[entry["name"]]
     log(f"launches on the driven paths: {json.dumps(launches)}")
-    phase_checkpoint()
-    lap("checkpoint")
     log(f"wall {time.perf_counter() - t_start:.1f} s on {smi}; by phase (s) {json.dumps(laps)}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

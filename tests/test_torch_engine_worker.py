@@ -94,6 +94,29 @@ def test_cancel_and_shutdown_end_streams(setup):
     assert not any(eng.row_pages[s] for s in range(eng.max_batch) if eng.slots[s] is None)
 
 
-def test_checkpoint_constructor_is_not_ported():
-    with pytest.raises(NotImplementedError, match="from_engine"):
-        EngineWorker("some/checkpoint")
+def test_checkpoint_constructor_is_not_ported(tmp_path):
+    """Named for the refusal it replaced: ``EngineWorker(model_path)`` now
+    loads the checkpoint through ``Chat``, builds a paged engine over it and
+    serves; only the slot engine still raises."""
+    from vcoder_tpu_torch.checkpoint import save_pretrained
+    from vcoder_tpu_torch.simple_tokenizer import SimpleTokenizer
+
+    cfg = VCoderConfig.tiny("vcoder_ds_llava")
+    params = init_vcoder_params(cfg, seed=3, device="cpu", dtype=torch.float32)
+    path = str(tmp_path / "vcoder_ds_llava-tiny")
+    save_pretrained(path, params, cfg)
+    SimpleTokenizer.build_from_texts(["USER: what ASSISTANT:"]).save_pretrained(path)
+    worker = EngineWorker(path, device="cpu", max_batch=2, max_len=256, page_size=8,
+                          attn_impl="xla")
+    try:
+        assert worker.chat.is_seg and worker.chat.is_depth and worker.model_name == "vcoder_ds_llava-tiny"
+        hw = cfg.vision.image_size
+        pics = [np.random.RandomState(i).randn(1, hw, hw, 3).astype(np.float32) for i in range(3)]
+        events = list(worker.submit(_prep(0, pics, max_new=4)))
+        assert [d for _, d, _ in events] == [False] * 3 + [True]
+        assert all(e is None for _, _, e in events)
+    finally:
+        worker.shutdown()
+    assert not worker._thread.is_alive()
+    with pytest.raises(NotImplementedError, match="slot engine"):
+        EngineWorker(path, device="cpu", engine="slot")

@@ -1,7 +1,8 @@
 """Greedy generation and checkpoints: the port against the JAX package.
 
 Greedy ``generate`` must give the same tokens as JAX, through the fused loop
-and through the windowed stop-keyword path; a tiny checkpoint written by JAX
+and through the windowed stop-keyword path, and so must beam search and
+prompt-lookup decoding through ``VCoderForCausalLM.generate``; a tiny checkpoint written by JAX
 ``save_pretrained`` must load through the port's ``load_pretrained_model``
 (with the port's own safetensors reader) and give the same tokens; and the
 port's ``save_pretrained`` output must load in JAX ``load_hf_checkpoint``
@@ -101,12 +102,20 @@ def test_greedy_generate_with_stop_keywords_matches_jax(setup):
 @pytest.mark.parametrize("kw", [dict(num_beams=4), dict(num_beams=4, length_penalty=0.7),
                                 dict(lookahead=8)], ids=["beams", "beams_length_penalty", "lookahead"])
 def test_generate_refuses_unported_modes(setup, kw):
-    """Beam search and prompt-lookup decoding are not ported: ``generate``
-    raises instead of returning greedy tokens in their place."""
+    """Named for the refusals these modes replaced: beam search and
+    prompt-lookup decoding through ``VCoderForCausalLM.generate`` now give
+    JAX's ``VCoderForCausalLM.generate`` tokens."""
+    from vcoder_tpu.builder import VCoderForCausalLM as JModel
+
+    ref = JModel(setup["jcfg"], setup["jp"]).generate(
+        setup["ids"], *(jnp.asarray(p) for p in setup["px"]), max_new_tokens=MAX_NEW,
+        tokenizer=setup["jt"], attn_impl="xla", **kw)
     model = VCoderForCausalLM(setup["tcfg"], setup["tp"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        model.generate(setup["ids"], *(torch.from_numpy(p) for p in setup["px"]),
-                       max_new_tokens=MAX_NEW, **kw)
+    out = model.generate(setup["ids"], *(torch.from_numpy(p) for p in setup["px"]),
+                         max_new_tokens=MAX_NEW, tokenizer=setup["tt"], **kw)
+    np.testing.assert_array_equal(out.sequences, np.asarray(ref.sequences))
+    np.testing.assert_array_equal(out.num_generated, ref.num_generated)
+    assert out.texts == ref.texts
 
 
 def test_generate_with_those_modes_off_matches_jax_greedy(setup):

@@ -124,8 +124,13 @@ def test_paged_engine_and_worker_raise_without_cuda(no_cuda):
     params = init_vcoder_params(cfg, device="cpu", dtype=torch.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         PagedServingEngine(cfg, params, max_len=256)  # device="cuda" by default
-    with pytest.raises(NotImplementedError, match="from_engine"):
-        EngineWorker("a/checkpoint")
+    # The checkpoint constructor loads through Chat, which resolves CUDA
+    # before it reads anything.
+    from vcoder_tpu_torch.serve.chat import Chat
+
+    for build in (EngineWorker, Chat):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build("a/checkpoint")
     meta = _map_tensors(params, lambda t: t.to("meta"))
     with pytest.raises(ValueError, match="params lie on"):
         PagedServingEngine(cfg, meta, max_len=256, device="cpu")

@@ -63,7 +63,9 @@ class VCoderImageProcessor:
 
 class VCoderForCausalLM:
     """(config, params) with HF-generate-like semantics:
-    ``generate(input_ids, images=, segs=, depths=, ...)``."""
+    ``generate(input_ids, images=, segs=, depths=, ...)``, forwarding
+    ``num_beams``, ``length_penalty`` and ``lookahead`` to
+    ``generation.generate``."""
 
     def __init__(self, cfg: VCoderConfig, params: dict):
         self.config = cfg
@@ -90,21 +92,6 @@ class VCoderForCausalLM:
         lookahead: int = 0,
         **kw,
     ) -> gen_mod.GenerationResult:
-        # Modes the JAX package runs and the port does not yet: refuse them
-        # rather than return greedy tokens in their place.
-        num_beams = kw.get("num_beams") or 1
-        if num_beams > 1:
-            penalty = kw.get("length_penalty")
-            raise NotImplementedError(
-                f"generate: beam search (num_beams={num_beams}"
-                + ("" if penalty is None else f", length_penalty={penalty}")
-                + ") is not ported; use num_beams=1"
-            )
-        if lookahead > 0:
-            raise NotImplementedError(
-                f"generate: prompt-lookup decoding (lookahead={lookahead}) is not ported; "
-                "use lookahead=0"
-            )
         if do_sample is False:
             temperature = 0.0
         elif do_sample and temperature <= 0.0:
@@ -122,13 +109,14 @@ class VCoderForCausalLM:
             seed=seed,
             tokenizer=tokenizer,
             stopping_criteria=stopping_criteria,
+            lookahead=lookahead,
             # Unknown HF-generate kwargs (use_cache, top_k, ...) are accepted
-            # and ignored, like the HF API; so is length_penalty without beams,
-            # as in JAX.
+            # and ignored, like the HF API.
             **{
                 k: v
                 for k, v in kw.items()
-                if k in ("pad_to", "attn_impl", "is_depth_zero", "is_seg_zero")
+                if k in ("pad_to", "attn_impl", "is_depth_zero", "is_seg_zero", "num_beams",
+                         "length_penalty")
             },
         )
 

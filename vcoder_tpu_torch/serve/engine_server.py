@@ -1,25 +1,45 @@
-"""Concurrent engine worker (port of ``TokenStream:49`` and ``EngineWorker:69``
-of ``vcoder_tpu/serve/engine_server.py``).
+"""Concurrent HTTP model worker over the paged engine (port of
+``vcoder_tpu/serve/engine_server.py``).
 
-Every client is multiplexed onto ONE engine: a background thread owns the
-engine and drives ``engine.step()``, each step decodes all active streams at
-once, and per-request token queues fan the events back out. Handlers talk to
-the loop thread through thread-safe submit/cancel queues.
+Every client is multiplexed onto ONE ``PagedServingEngine``: a background
+thread owns the engine and drives ``engine.step()``, each step decodes all
+active streams at once, and per-request token queues fan the events back
+out. Only the loop thread touches the engine; handlers talk to it through
+thread-safe submit/cancel queues.
 
-Ported: :meth:`EngineWorker.from_engine` (wrap an already-built engine),
-``submit``, ``cancel``, ``stats``, ``shutdown`` and the loop. The checkpoint
-constructor (which builds a ``Chat``), the HTTP handler, ``serve`` and
-``main`` wait for the surfaces slice; the constructor raises.
+Same wire format as ``serve/server.py`` (and FastChat):
+
+* ``POST /worker_generate_stream`` -- Chat params dict in, NUL-delimited
+  ``{"text": ..., "error_code": 0}`` JSON chunks streamed out.
+* ``GET /health`` -- worker status + model name.
+* ``GET /stats`` -- engine step-timer percentiles, queue depth, active
+  slots, prefix-cache counters.
+
+Requests are prepared by ``Chat.prepare`` (the same validation as the
+serialized worker; pixels are preprocessed on the device in the handler
+thread, then handed to the engine as host arrays). A stop string CANCELS the
+engine request, and so does a client that goes away, so no slot is stranded.
+
+    python -m vcoder_tpu_torch.serve.engine_server --model-path <ckpt> \
+        --port 21002 --max-batch 8 --page-size 128 [--kv-quant]
+        [--speculative 4] [--prefix-cache] [--chunked-prefill 512]
+
+The slot engine (``engine="slot"``) is not ported; it raises.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import logging
 import queue
 import threading
-from typing import Dict, List, Optional, Tuple
+from http.server import ThreadingHTTPServer
+from typing import Dict, Iterator, List, Optional, Tuple
 
-from vcoder_tpu_torch.serve.chat import PreparedRequest
+from vcoder_tpu_torch.serve.chat import Chat, PreparedRequest, json_chunk, stream_gate
+from vcoder_tpu_torch.serve.server import StreamingHandler
+from vcoder_tpu_torch.utils import build_logger
 
 logger = logging.getLogger("engine_worker")
 
@@ -44,14 +64,40 @@ class TokenStream:
 
 
 class EngineWorker:
-    """Owns an engine and the engine-loop thread; all engine access happens
-    on the loop thread."""
+    """Owns the model (through a :class:`Chat`), the engine and the
+    engine-loop thread; all engine access happens on the loop thread."""
 
-    def __init__(self, model_path: str, *args, **kwargs):
-        raise NotImplementedError(
-            "building a worker from a checkpoint (Chat) is not ported yet; "
-            "build the engine and use EngineWorker.from_engine(engine, ...)"
-        )
+    def __init__(
+        self,
+        model_path: str,
+        model_base=None,
+        model_name=None,
+        load_8bit: bool = False,
+        load_4bit: bool = False,
+        device="cuda",
+        tokenizer=None,
+        engine: str = "paged",
+        **engine_kw,
+    ):
+        if engine == "slot":
+            raise NotImplementedError(
+                "the slot engine (serve/engine.py's ServingEngine) is not ported; "
+                "use engine='paged'"
+            )
+        if engine != "paged":
+            raise ValueError(f"unknown engine {engine!r}")
+        self.chat = Chat(model_path, model_base, model_name=model_name, load_8bit=load_8bit,
+                         load_4bit=load_4bit, device=device, tokenizer=tokenizer)
+        from vcoder_tpu_torch.serve.paged_engine import PagedServingEngine
+
+        model = self.chat.model
+        self.engine = PagedServingEngine(model.config, model.params, device=self.chat.device,
+                                         **engine_kw)
+        self.model_name = self.chat.model_name
+        self.eos_id = model.config.text.eos_token_id
+        # Run every group-chunk shape once before traffic arrives.
+        self.engine.warmup_chunks()
+        self._start_loop()
 
     @classmethod
     def from_engine(cls, engine, *, model_name: str, eos_id: int) -> "EngineWorker":
@@ -188,3 +234,129 @@ class EngineWorker:
                 handle.q.put((tok, done, err))
                 if done:
                     del self._streams[rid]
+
+
+def _host(x):
+    """Pixels for the engine: a device tensor comes back as a numpy array."""
+    return x.float().cpu().numpy() if hasattr(x, "cpu") else x
+
+
+class EngineWorkerHandler(StreamingHandler):
+    worker: EngineWorker = None  # bound by serve()
+    # A stalled client errors its own stream (cancelling its request)
+    # rather than pinning a handler thread; no global lock here.
+    socket_timeout = 300.0
+    log = logger
+
+    def get_json(self, path: str) -> Optional[dict]:
+        if path == "/health":
+            return {"status": "ok", "model": self.worker.model_name}
+        return self.worker.stats() if path == "/stats" else None
+
+    def stream(self, params: dict) -> Iterator[bytes]:
+        return stream_gate(self._engine_chunks(params))
+
+    def _engine_chunks(self, params: dict) -> Iterator[bytes]:
+        """The response's chunks; a failure raises (``stream_gate`` turns it
+        into an error chunk, never a silently empty completion)."""
+        worker = self.worker
+        prep = worker.chat.prepare(params)
+        if prep.budget_error is not None:
+            yield json_chunk(prep.ori_prompt + prep.budget_error, 0)
+            return
+        if prep.lora is not None and prep.lora not in worker.engine.lora_ids:
+            raise ValueError(f"unknown LoRA adapter: {prep.lora}")
+        prep = dataclasses.replace(prep, images=_host(prep.images), segs=_host(prep.segs),
+                                   depths=_host(prep.depths))
+        tokenizer = worker.chat.tokenizer
+        handle = worker.submit(prep)
+        generated: List[int] = []
+        try:
+            for tok, done, err in handle:
+                if err is not None:
+                    raise RuntimeError(f"request failed: {err}")  # admission or step
+                if tok == worker.eos_id:
+                    return  # EOS never surfaces as text
+                generated.append(tok)
+                text = tokenizer.decode(generated, skip_special_tokens=True)
+                if prep.stop_str and text.endswith(prep.stop_str):
+                    text = text[: -len(prep.stop_str)]
+                    done = True
+                    worker.cancel(handle)
+                yield json_chunk(prep.ori_prompt + text, 0)
+                if done:
+                    return
+        except GeneratorExit:
+            # The client went away mid-stream (maybe before admission
+            # assigned a request id): free the slot either way.
+            worker.cancel(handle)
+            raise
+
+
+def serve(worker: EngineWorker, host: str = "0.0.0.0", port: int = 21002) -> ThreadingHTTPServer:
+    """Build the server (the caller runs ``serve_forever`` / ``shutdown``)."""
+    handler = type("BoundEngineWorkerHandler", (EngineWorkerHandler,), {"worker": worker})
+    return ThreadingHTTPServer((host, port), handler)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model-path", type=str, required=True)
+    ap.add_argument("--model-base", type=str, default=None)
+    ap.add_argument("--host", type=str, default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=21002)
+    ap.add_argument("--load-8bit", action="store_true")
+    ap.add_argument("--load-4bit", action="store_true")
+    ap.add_argument("--device", type=str, default="cuda")
+    ap.add_argument("--engine", choices=["paged", "slot"], default="paged")
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--max-len", type=int, default=4096)
+    ap.add_argument("--page-size", type=int, default=128)
+    ap.add_argument("--kv-quant", action="store_true")
+    ap.add_argument("--speculative", type=int, default=0)
+    ap.add_argument("--sync-every", type=int, default=1)
+    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--chunked-prefill", type=int, default=0)
+    ap.add_argument(
+        "--lora", action="append", default=[], metavar="NAME=PATH",
+        help="serve a PEFT adapter dir under NAME (repeatable); requests pick one via the "
+        "'lora' param",
+    )
+    return ap
+
+
+def worker_from_args(args) -> EngineWorker:
+    """The :class:`EngineWorker` that ``main`` serves, from its parsed flags."""
+    lora_adapters = None
+    if args.lora:
+        from vcoder_tpu_torch.lora import load_lora_adapter_dir
+
+        lora_adapters = {}
+        for spec in args.lora:
+            name, _, path = spec.partition("=")
+            if not path:
+                raise ValueError(f"--lora expects NAME=PATH, got {spec!r}")
+            lora_adapters[name] = load_lora_adapter_dir(path)
+    engine_kw = dict(max_batch=args.max_batch, max_len=args.max_len, kv_quant=args.kv_quant,
+                     speculative=args.speculative, sync_every=args.sync_every,
+                     lora_adapters=lora_adapters)
+    if args.engine == "paged":
+        engine_kw.update(page_size=args.page_size, prefix_cache=args.prefix_cache,
+                         chunked_prefill=args.chunked_prefill)
+    return EngineWorker(args.model_path, args.model_base, load_8bit=args.load_8bit,
+                        load_4bit=args.load_4bit, device=args.device, engine=args.engine,
+                        **engine_kw)
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    build_logger("engine_worker", "engine_worker.log")
+    worker = worker_from_args(args)
+    httpd = serve(worker, args.host, args.port)
+    logger.info(f"engine worker listening on {args.host}:{args.port} model={worker.model_name} "
+                f"engine={args.engine}")
+    httpd.serve_forever()
+
+
+if __name__ == "__main__":
+    main()
