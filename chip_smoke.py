@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``vcoder_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py                  # every phase (1-4, 6, 7, 8, 9, 5, 10)
+    python3 chip_smoke.py                  # every phase (1-4, 6, 7, 8, 9, 5, 11a, 10, 11)
     python3 chip_smoke.py --profile        # also torch.profiler: two B=1 requests,
                                            # the paged engine's decode step at B=8,
                                            # in bf16, with int4/int8 weights and with
@@ -146,6 +146,27 @@ Phases, in order; any failure exits non-zero:
    subprocess (two turns on stdin); every chunk ``error_code`` 0 and every
    surface's first token equal to ``generate``'s. Logs the seconds of each
    load and of the phase, the TTFTs, tok/s and token digests.
+11. A COST depth eval (``scripts/v1_5/eval/cost_depth.sh``'s flow) of the
+   DS model at full width and depth, in two parts. Before phase 10, on the
+   phase-4 weights: a COST-like tree of 8 keys (``make_cost_tree``: the
+   repo's JPEG photos, panoptic maps and depth maps, cycled, read as data,
+   and a ``panoptic_order.txt``); every JPEG of it decoded by the native
+   library on this machine's route (libjpeg, or nvJPEG where libjpeg's
+   headers are missing) and held to PIL's decode (``JPEG_REFS``: channel
+   means within ``JPEG_MEAN_TOL``, 16x16 box thumbnails within
+   ``JPEG_THUMB_TOL`` levels); the 24 files through
+   ``load_images_preprocessed`` (milliseconds and routes logged, no file
+   through PIL), its PNGs against ``png.decode_png`` + ``process_images``
+   (mean below 0.01, 99th percentile below 0.06); each row's first token and
+   top-two logit gap from a B=1 prefill. Then, in phase 10's checkpoint
+   directory: ``cost_loader.eval_model`` (``--tasks depth --use-seg
+   --use-depth --batch-size 8``, greedy, 512 new tokens, one load) and
+   ``depth_accuracy`` on its answers file. Gates: 8 records for the 8 keys in
+   order and in the record format; each answer starts with its B=1 first
+   token, or that row's B=1 top two logits lie within one bf16 ulp (logged);
+   32 flash launches per batched prefill, 23 ViT blocks per tower pass, no
+   paged launch; one finite DS >= 0 per key. Logs the load seconds, the eval
+   wall, tokens/s and ms a step of ``generate``, the answers' sha1 and the DS.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -3253,12 +3274,13 @@ def _serving(httpd):
         t.join(timeout=60)
 
 
-def phase_surfaces(cfg, held: list, tok, reqs) -> dict:
+def phase_surfaces(cfg, held: list, tok, reqs, then=None) -> dict:
     """Phase 10: generate's other modes on the phase-4 weights (``held`` =
     [params, model], dropped once the checkpoint is written), then the
     serving surfaces from one checkpoint directory: the Chat-based HTTP
     worker, the engine worker at ``main()``'s defaults under 4 concurrent
-    requests, and the CLI as a subprocess. Returns the launch totals."""
+    requests, and the CLI as a subprocess. ``then(dir)`` runs last, in the
+    checkpoint directory (phase 11). Returns the launch totals."""
     import base64
     import gc
     import shutil
@@ -3436,12 +3458,332 @@ def phase_surfaces(cfg, held: list, tok, reqs) -> dict:
         log(f"  CLI: two turns in {laps['cli']} s (a subprocess: start, load, preprocess, two "
             f"streamed answers of {n} tokens); first token equal to generate's; answers sha1 "
             f"{_digest(answers)}")
+        laps["phase"] = round(time.perf_counter() - t_phase, 1)
+        if then is not None:
+            log("COST depth eval (phase 11): cost_loader on the phase-10 checkpoint directory")
+            then(d)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    laps["phase"] = round(time.perf_counter() - t_phase, 1)
     log(f"  phase 10 seconds: {json.dumps(laps)}; device memory peak in the phase "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return totals
+
+
+# Phase 11: a COST depth eval (scripts/v1_5/eval/cost_depth.sh's flow) of the
+# DS model. The tree is built from the repo's pictures, read as data.
+EX = "vcoder_tpu/serve/examples"
+COST_PHOTOS = ("examples/demo.jpg", f"{EX}/corgi.jpg", f"{EX}/friends.jpg", f"{EX}/people.jpg",
+               f"{EX}/suits.jpg", f"{EX}/depth.jpeg")
+COST_SEGS = ("examples/demo_pan.png", f"{EX}/corgi_pan.png", f"{EX}/depth_pan.png",
+             f"{EX}/friends_pan.png", f"{EX}/people_pan.png", f"{EX}/suits_pan.png")
+COST_DEPTHS = ("examples/demo_depth.png", f"{EX}/depth_depth.png", f"{EX}/suits_depth.jpeg")
+# Every JPEG of the tree: decoded on the card and held to PIL's decode here
+# (channel means and a 16x16 box-averaged thumbnail, ``JPEG_REFS``, written
+# by scripts/jpeg_refs.py).
+JPEG_FILES = COST_PHOTOS + (f"{EX}/suits_depth.jpeg",)
+JPEG_REFS = "vcoder_tpu_torch/data/jpeg_refs.json"
+JPEG_MEAN_TOL = 1.0  # uint8 levels, per channel mean
+JPEG_THUMB_TOL = 4.0  # uint8 levels, per box of the 16x16 thumbnail
+COST_KEYS = [f"c{i}.jpg" for i in range(8)]
+COST_ORDERS = ["person, car, tree, building, sky", "dog, grass, wall", "person, person-2, table, "
+               "window", "bench, tree, road, sky", "person, wall", "car, car-2, road, building, "
+               "sky", "window, wall, person", "tree, grass, sky"]
+COST_BATCH = 8
+COST_NEW = 512  # the loader's max_new_tokens
+
+
+def _sync(device: str) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def box_thumbnail(rgb: np.ndarray, n: int = 16) -> np.ndarray:
+    """[H, W, 3] uint8 -> [n, n, 3] float64: the mean of each of n x n boxes
+    (box edges at floor(i * H / n), floor(j * W / n))."""
+    h, w = rgb.shape[:2]
+    ys, xs = np.arange(n + 1) * h // n, np.arange(n + 1) * w // n
+    x = rgb.astype(np.float64)
+    return np.array([[x[ys[i]:ys[i + 1], xs[j]:xs[j + 1]].mean(axis=(0, 1)) for j in range(n)]
+                     for i in range(n)])
+
+
+def jpeg_ref(rgb: np.ndarray) -> dict:
+    """The reference record of one decoded JPEG."""
+    return {"shape": list(rgb.shape), "mean": rgb.reshape(-1, 3).mean(axis=0).round(4).tolist(),
+            "thumb16": box_thumbnail(rgb).round(3).tolist()}
+
+
+def make_cost_tree(root: str) -> dict:
+    """A COST-like tree of ``COST_KEYS``: ``val2017/`` the photos,
+    ``panoptic_inference/`` the panoptic maps, ``depth/`` the depth maps
+    (each cycled, named like its key as COST names them) and the ground
+    truth ``panoptic_order.txt`` in ``depth_accuracy``'s format."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    tree = {"root": root, "gt": os.path.join(root, "panoptic_order.txt")}
+    for sub, files in (("val2017", COST_PHOTOS), ("panoptic_inference", COST_SEGS),
+                       ("depth", COST_DEPTHS)):
+        os.makedirs(os.path.join(root, sub))
+        tree[sub] = []
+        for i, key in enumerate(COST_KEYS):
+            with open(os.path.join(here, files[i % len(files)]), "rb") as f:
+                data = f.read()
+            tree[sub].append(os.path.join(root, sub, key))
+            with open(tree[sub][-1], "wb") as f:
+                f.write(data)
+    with open(tree["gt"], "w") as f:
+        for key, order in zip(COST_KEYS, COST_ORDERS):
+            f.write(f"<IMG>{key}<IMG>The depth order for the objects present in the image "
+                    f"is: {order}\n")
+    return tree
+
+
+def check_jpeg_decode() -> dict:
+    """The JPEG files decoded by the native library (this machine's route)
+    against PIL's decode, recorded in ``JPEG_REFS``: equal shapes, channel
+    means within ``JPEG_MEAN_TOL`` and thumbnail boxes within
+    ``JPEG_THUMB_TOL``."""
+    from vcoder_tpu_torch import native_io
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, JPEG_REFS)) as f:
+        refs = json.load(f)
+    t0 = time.perf_counter()
+    route = native_io.route()
+    build_s = time.perf_counter() - t0
+    worst = {"mean": 0.0, "thumb": 0.0}
+    for name in JPEG_FILES:
+        with open(os.path.join(here, name), "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        rgb = native_io.decode_image(data)
+        ms = (time.perf_counter() - t0) * 1e3
+        ref = refs[name]
+        if rgb is None or list(rgb.shape) != ref["shape"]:
+            raise SystemExit(f"cost eval: {name} decodes to "
+                             f"{None if rgb is None else rgb.shape}, want {ref['shape']}")
+        got = jpeg_ref(rgb)
+        dm = float(np.abs(np.array(got["mean"]) - ref["mean"]).max())
+        dt = float(np.abs(np.array(got["thumb16"]) - ref["thumb16"]).max())
+        worst = {"mean": max(worst["mean"], dm), "thumb": max(worst["thumb"], dt)}
+        log(f"  {name}: {rgb.shape[1]}x{rgb.shape[0]} decoded in {ms:.1f} ms; against PIL: "
+            f"channel means within {dm:.4f}, thumbnail boxes within {dt:.3f} levels")
+        if dm > JPEG_MEAN_TOL or dt > JPEG_THUMB_TOL:
+            raise SystemExit(f"cost eval: {name} on the {route} route is {dm:.4f} / {dt:.3f} "
+                             f"levels from PIL's decode (gates {JPEG_MEAN_TOL} / "
+                             f"{JPEG_THUMB_TOL})")
+    return {"route": route, "build_s": round(build_s, 2), **worst}
+
+
+def _cost_rows(tok) -> tuple:
+    """The loader's prompt ids and questions for ``COST_KEYS`` (sorted), as
+    ``cost_loader.eval_model`` builds them for ``--tasks depth --use-seg
+    --use-depth --conv-mode vicuna_v1 --seed 0``."""
+    import random
+
+    from vcoder_tpu_torch.conversation import conv_templates
+    from vcoder_tpu_torch.mm_tokens import tokenizer_depth_seg_token
+    from vcoder_tpu_torch.questions import QUESTIONS
+    from vcoder_tpu_torch.simple_tokenizer import SimpleTokenizer
+
+    # As the loader reads it back from the checkpoint: frozen, unknown words
+    # to <unk> (the tokenizer in memory would grow its vocabulary).
+    tok = SimpleTokenizer(vocab=tok.vocab, add_bos=tok.add_bos)
+    rng = random.Random(0)
+    rows, quests = [], []
+    for _ in COST_KEYS:
+        ques = rng.choice(QUESTIONS["depth"])
+        conv = conv_templates["vicuna_v1"].copy()
+        conv.append_message(conv.roles[0], "<depth>\n<seg>\n<image>\n" + ques)
+        conv.append_message(conv.roles[1], None)
+        rows.append(list(tokenizer_depth_seg_token(conv.get_prompt(), tok)))
+        quests.append(ques)
+    return rows, quests
+
+
+def cost_eval_prepare(cfg, held: list, tok, device: str = "cuda") -> dict:
+    """Phase 11 (a), on the held phase-4 weights: the COST tree, the JPEG
+    decode against PIL's, the 24 files through ``load_images_preprocessed``
+    (the PNGs against ``png.decode_png`` + ``process_images``, the tolerance
+    of the JAX package's test of its two routes), and each row's first token
+    and top-two logit gap from a B=1 prefill."""
+    import math
+
+    import torch
+
+    from vcoder_tpu_torch import generation as gen_mod
+    from vcoder_tpu_torch import png
+    from vcoder_tpu_torch import preprocess as pp
+
+    t_phase = time.perf_counter()
+    params, model = held
+    tree = make_cost_tree(tempfile.mkdtemp(prefix="vcoder_cost_"))
+    jpeg = check_jpeg_decode()
+    for k in pp.file_routes:
+        pp.file_routes[k] = 0
+    t0 = time.perf_counter()
+    size = cfg.vision.image_size
+    px = [pp.load_images_preprocessed(tree[sub], size=size, device=device)
+          for sub in ("val2017", "panoptic_inference", "depth")]
+    _sync(device)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    routes = dict(pp.file_routes)
+    if routes["PIL"] or sum(routes.values()) != 3 * len(COST_KEYS):
+        raise SystemExit(f"cost eval: file routes {routes}, want every file native or png.py")
+    log(f"  decode route {jpeg['route']} (library built in {jpeg['build_s']} s); JPEG against "
+        f"PIL: means within {jpeg['mean']:.4f}, thumbnails within {jpeg['thumb']:.3f} levels; "
+        f"24 files through load_images_preprocessed in {load_ms:.1f} ms (host clock), routes "
+        f"{json.dumps(routes)}")
+    got, ref, names = [], [], []
+    for sub, t in (("panoptic_inference", px[1]), ("depth", px[2])):
+        for k, path in enumerate(tree[sub]):
+            with open(path, "rb") as f:
+                data = f.read()
+            if data.startswith(png.SIGNATURE):
+                got.append(t[k])
+                ref.append(pp.process_images([png.decode_png(data)], size=size, device=device)[0])
+                names.append(f"{sub}/{COST_KEYS[k]}")
+    diff = (torch.stack(got) - torch.stack(ref)).abs().float()
+    mean, p99 = diff.mean().item(), torch.quantile(diff.flatten()[::7], 0.99).item()
+    log(f"  {len(names)} PNG files against png.decode_png + process_images: mean "
+        f"{mean:.5f}, p99 {p99:.5f}, max {diff.max().item():.4f} (normalized units)")
+    if not (mean < 0.01 and p99 < 0.06):
+        raise SystemExit(f"cost eval: PNG pixels off the plain route (mean {mean}, p99 {p99})")
+
+    rows, quests = _cost_rows(tok)
+    n_mod = 3
+    pad_to = -(-(max(len(r) for r in rows) + n_mod * cfg.vision.num_patches) // 256) * 256
+    firsts, gaps, ulps = [], [], []
+    with torch.no_grad():
+        for k, ids in enumerate(rows):
+            one = [t[k:k + 1] for t in px]
+            _, plan, arrays, im, sg, dp = gen_mod._prepare_inputs(params, cfg, [ids], *one,
+                                                                  pad_to=pad_to)
+            logits, _ = gen_mod._prefill(params, cfg, arrays, im, sg, dp, cache_len=plan.seq_len,
+                                         use_vcoder_emb=plan.use_vcoder_emb
+                                         and cfg.use_vcoder_lm_emb, attn_impl="auto")
+            top2 = torch.topk(logits[0].float(), 2).values.tolist()
+            first = int(model.generate([ids], *one, max_new_tokens=1, pad_to=pad_to)
+                        .sequences[0, 0])
+            if logits[0, first].float().item() != top2[0]:
+                raise SystemExit(f"cost eval: row {k}: generate's first token {first} is not "
+                                 f"the B=1 prefill's top logit")
+            firsts.append(first)
+            gaps.append(top2[0] - top2[1])
+            ulps.append(2.0 ** (math.floor(math.log2(abs(top2[0]))) - 7))
+    log(f"  B=1 first tokens {firsts} (pad_to {pad_to}); top-two gaps "
+        f"{', '.join(f'{g:.4f}' for g in gaps)}")
+    return dict(tree=tree, rows=rows, quests=quests, firsts=firsts, gaps=gaps, ulps=ulps,
+                pad_to=pad_to, jpeg=jpeg, load_ms=load_ms,
+                seconds=time.perf_counter() - t_phase)
+
+
+def phase_cost_eval(ckpt: str, prep: dict, tok, device: str = "cuda") -> dict:
+    """Phase 11 (b): ``cost_loader.eval_model`` on the checkpoint directory,
+    as scripts/v1_5/eval/cost_depth.sh runs it (``--tasks depth --use-seg
+    --use-depth --batch-size 8``, greedy, one load), then ``depth_accuracy``
+    on its answers file. Gates: 8 records for the 8 keys in order and in
+    the record format, each answer starting with its B=1 first token (or a
+    B=1 near-tie, logged), 32 flash launches per batched prefill and 23 ViT
+    blocks per tower pass and no paged launch, one finite DS >= 0 per key.
+    Returns the launch counts."""
+    import re
+    import shutil
+
+    from vcoder_tpu_torch import builder
+    from vcoder_tpu_torch.eval import cost_loader, depth_accuracy
+
+    t_phase = time.perf_counter()
+    tree = prep["tree"]
+    out_dir = os.path.join(tree["root"], "eval")
+    try:
+        args = cost_loader.build_parser().parse_args([
+            "--model-path", ckpt, "--image-folder", os.path.join(tree["root"], "val2017"),
+            "--use_seg", "--seg-image-folder", os.path.join(tree["root"], "panoptic_inference"),
+            "--use_depth", "--depth-image-folder", os.path.join(tree["root"], "depth"),
+            "--output-file", os.path.join(out_dir, "output"), "--tasks", "depth",
+            "--temperature", "0", "--conv-mode", "vicuna_v1", "--batch-size", str(COST_BATCH),
+            "--device", device,
+        ])
+        timing = {"load": [], "generate": []}
+        load_orig, gen_orig = cost_loader.load_pretrained_model, builder.VCoderForCausalLM.generate
+
+        def timed_load(*a, **kw):
+            t0 = time.perf_counter()
+            out = load_orig(*a, **kw)
+            _sync(device)
+            timing["load"].append(time.perf_counter() - t0)
+            return out
+
+        def timed_generate(self, *a, **kw):
+            _sync(device)
+            t0 = time.perf_counter()
+            res = gen_orig(self, *a, **kw)
+            _sync(device)
+            timing["generate"].append((time.perf_counter() - t0, int(res.num_generated.sum()),
+                                       tuple(res.sequences.shape)))
+            return res
+
+        cost_loader.load_pretrained_model = timed_load
+        builder.VCoderForCausalLM.generate = timed_generate
+        _reset_counters()
+        try:
+            t0 = time.perf_counter()
+            answers = cost_loader.eval_model(args, "depth")
+            wall = time.perf_counter() - t0
+        finally:
+            cost_loader.load_pretrained_model = load_orig
+            builder.VCoderForCausalLM.generate = gen_orig
+        c = _counters()
+        batches = -(-len(COST_KEYS) // COST_BATCH)
+        if c["flash"] != 32 * batches or c["vit"] != 23 * batches or c["paged"]:
+            raise SystemExit(f"cost eval: launches {c} over {batches} batched prefills, want 32 "
+                             f"flash and 23 ViT each and no paged launch")
+        with open(answers) as f:
+            text = f.read()
+        records = re.findall(r"Image: ([^\n]*)\n<<QUESTION>>: ([^\n]*)\n<<ANSWER>>: (.*?)\n"
+                             r"-{55}\n", text, re.S)
+        rebuilt = "".join(f"Image: {k}\n<<QUESTION>>: {q}\n<<ANSWER>>: {a}\n{'-' * 55}\n"
+                          for k, q, a in records)
+        if ([r[0] for r in records] != COST_KEYS or [r[1] for r in records] != prep["quests"]
+                or rebuilt != text):
+            raise SystemExit(f"cost eval: {answers} holds {len(records)} records for keys "
+                             f"{[r[0] for r in records]}, want {COST_KEYS} with the loader's "
+                             f"questions, in the record format")
+        ties = []
+        for k, (key, _, ans) in enumerate(records):
+            want = tok.decode([prep["firsts"][k]], skip_special_tokens=True)
+            if not ans.startswith(want):
+                if prep["gaps"][k] > prep["ulps"][k]:
+                    raise SystemExit(f"cost eval: {key}'s answer {ans[:40]!r} does not start with "
+                                     f"its B=1 first token {want!r} (top-two gap "
+                                     f"{prep['gaps'][k]:.4f} > one ulp {prep['ulps'][k]})")
+                ties.append((key, prep["gaps"][k]))
+        try:
+            scores = depth_accuracy.calculate_depth_score(tree["gt"], answers)
+        except AssertionError as e:
+            raise SystemExit(f"cost eval: depth_accuracy refuses {answers}: {e}")
+        if len(scores) != len(COST_KEYS) or not all(np.isfinite(x) and x >= 0 for x in scores):
+            raise SystemExit(f"cost eval: depth_accuracy gives {scores}, want one finite score "
+                             f">= 0 for each of {len(COST_KEYS)} keys")
+        gen_s = sum(t for t, _, _ in timing["generate"])
+        n_tok = sum(n for _, n, _ in timing["generate"])
+        steps = sum(shape[1] for _, _, shape in timing["generate"])
+        with open(answers, "rb") as f:
+            sha = hashlib.sha1(f.read()).hexdigest()[:16]
+        log(f"  cost_loader.eval_model (depth, B={COST_BATCH}): load {timing['load'][0]:.1f} s, "
+            f"eval wall {wall:.1f} s (host clock), generate {gen_s:.2f} s for {n_tok} tokens "
+            f"({n_tok / gen_s:.1f} tok/s, {gen_s / steps * 1e3:.2f} ms a step over {steps} "
+            f"steps, the batched prefill included), launches {json.dumps(c)}")
+        log(f"  answers: 8 records in the record format, first tokens equal to B=1's"
+            f"{'' if not ties else f' but near-ties {ties}'}; sha1 {sha}; DS per key "
+            f"{', '.join(f'{x:.2f}' for x in scores)}, mean {sum(scores) / len(scores):.2f} "
+            f"(random weights: each ground-truth object missing from an answer counts 100)")
+        log(f"  phase 11 seconds: {json.dumps({'prepare': round(prep['seconds'], 1), 'eval': round(time.perf_counter() - t_phase, 1)})}")
+        return {"flash": c["flash"], "vit": c["vit"]}
+    finally:
+        shutil.rmtree(tree["root"], ignore_errors=True)
 
 
 def main() -> int:
@@ -3516,11 +3858,17 @@ def main() -> int:
     }
     phase_checkpoint()
     lap("checkpoint")
+    tok10 = full_vocab_tokenizer(cfg)
+    log("COST depth eval (phase 11, its inputs): VCoder-DS-7B bf16, the phase-4 weights")
+    prep = cost_eval_prepare(cfg, held, tok10)
+    lap("cost_prepare")
     log("surfaces (phase 10): VCoder-DS-7B bf16, the phase-4 weights and requests")
-    p10 = phase_surfaces(cfg, held, full_vocab_tokenizer(cfg), main_counts["requests"])
-    lap("surfaces")
-    launches["flash_fwd"] += p10["flash"]
-    launches["vit_block"] += p10["vit"]
+    p11 = {}
+    p10 = phase_surfaces(cfg, held, tok10, main_counts["requests"],
+                         then=lambda d: p11.update(phase_cost_eval(d, prep, tok10)))
+    lap("surfaces_and_cost_eval")
+    launches["flash_fwd"] += p10["flash"] + p11["flash"]
+    launches["vit_block"] += p10["vit"] + p11["vit"]
     launches["paged_attn_k8"] += p10["k8"]
     for entry in report:
         entry["launches"] = launches[entry["name"]]

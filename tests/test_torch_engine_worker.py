@@ -94,10 +94,10 @@ def test_cancel_and_shutdown_end_streams(setup):
     assert not any(eng.row_pages[s] for s in range(eng.max_batch) if eng.slots[s] is None)
 
 
-def test_checkpoint_constructor_is_not_ported(tmp_path):
-    """Named for the refusal it replaced: ``EngineWorker(model_path)`` now
-    loads the checkpoint through ``Chat``, builds a paged engine over it and
-    serves; only the slot engine still raises."""
+def test_checkpoint_constructor_serves_and_slot_raises(tmp_path):
+    """``EngineWorker(model_path)`` loads the checkpoint through ``Chat``,
+    builds a paged engine over it and serves; only the slot engine still
+    raises."""
     from vcoder_tpu_torch.checkpoint import save_pretrained
     from vcoder_tpu_torch.simple_tokenizer import SimpleTokenizer
 
@@ -118,5 +118,8 @@ def test_checkpoint_constructor_is_not_ported(tmp_path):
     finally:
         worker.shutdown()
     assert not worker._thread.is_alive()
+    with pytest.raises(NotImplementedError):
+        EngineWorker(path, device="cpu", engine="slot", max_batch=2, max_len=256, page_size=8,
+                     attn_impl="xla")
     with pytest.raises(NotImplementedError, match="slot engine"):
         EngineWorker(path, device="cpu", engine="slot")

@@ -101,10 +101,10 @@ def test_greedy_generate_with_stop_keywords_matches_jax(setup):
 
 @pytest.mark.parametrize("kw", [dict(num_beams=4), dict(num_beams=4, length_penalty=0.7),
                                 dict(lookahead=8)], ids=["beams", "beams_length_penalty", "lookahead"])
-def test_generate_refuses_unported_modes(setup, kw):
-    """Named for the refusals these modes replaced: beam search and
-    prompt-lookup decoding through ``VCoderForCausalLM.generate`` now give
-    JAX's ``VCoderForCausalLM.generate`` tokens."""
+def test_generate_beams_and_lookahead_match_jax(setup, kw):
+    """Beam search and prompt-lookup decoding through
+    ``VCoderForCausalLM.generate`` give JAX's ``VCoderForCausalLM.generate``
+    tokens."""
     from vcoder_tpu.builder import VCoderForCausalLM as JModel
 
     ref = JModel(setup["jcfg"], setup["jp"]).generate(

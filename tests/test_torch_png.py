@@ -139,8 +139,10 @@ def test_sixteen_bit_interlaced_and_malformed_pngs_raise():
 
 
 def test_loader_routes_by_format(monkeypatch):
-    """PNG through the port's decoder; JPEG and a 16-bit PNG through PIL; and
-    without PIL those raise a ValueError that names PIL."""
+    """PNG through the port's decoder, JPEG through the native library (equal
+    to PIL's decode on this machine's libjpeg route), a 16-bit PNG through
+    PIL; without PIL the PNG and the JPEG still decode, while the 16-bit PNG
+    and a JPEG the library rejects raise a ValueError that names PIL."""
     from vcoder_tpu_torch.serve.chat import load_image_from_base64
 
     rgb = np.random.RandomState(0).randint(0, 256, (9, 11, 3)).astype(np.uint8)
@@ -164,6 +166,7 @@ def test_loader_routes_by_format(monkeypatch):
 
     monkeypatch.setattr(builtins, "__import__", no_pil)
     np.testing.assert_array_equal(load_image_from_base64(b64), rgb)  # no PIL needed
-    for data in (jpeg, sixteen):
+    np.testing.assert_array_equal(png.load_image_bytes(jpeg), _pil_rgb(jpeg))  # native
+    for data in (sixteen, jpeg[:40]):
         with pytest.raises(ValueError, match="needs PIL"):
             png.load_image_bytes(data)

@@ -14,9 +14,9 @@ byte. :func:`encode_png` writes the same colour types, with one filter
 type for every row.
 
 :func:`load_image_bytes` is the one route the serving loaders take: PNG
-bytes through :func:`decode_png` on every machine, anything else (and a PNG
-this decoder refuses) through PIL, and a ``ValueError`` naming PIL where
-PIL is missing.
+bytes through :func:`decode_png` and JPEG bytes through the native library
+(``native_io.py``) on every machine, anything else (and a file those
+refuse) through PIL, and a ``ValueError`` naming PIL where PIL is missing.
 """
 
 from __future__ import annotations
@@ -36,6 +36,8 @@ from typing import Optional
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# A JPEG file's first marker (start of image).
+JPEG_SOI = b"\xff\xd8"
 # Samples per pixel of each colour type.
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 # Larger images are refused before anything is inflated (PIL's own
@@ -216,15 +218,25 @@ def encode_png(arr: np.ndarray, *, palette: Optional[np.ndarray] = None,
 
 def load_image_bytes(data: bytes) -> np.ndarray:
     """Image file bytes -> ``[H, W, 3] uint8`` RGB. PNG goes through
-    :func:`decode_png`; any other format, and a PNG it does not read, through
-    PIL, and without PIL that raises a ``ValueError`` that says so."""
+    :func:`decode_png`, JPEG through the native library
+    (:func:`vcoder_tpu_torch.native_io.decode_image`: libjpeg or nvJPEG, one
+    route per machine); any other format, a PNG :func:`decode_png` does not
+    read and a JPEG the library rejects go through PIL, and without PIL that
+    raises a ``ValueError`` that says so."""
     if data.startswith(SIGNATURE):
         try:
             return decode_png(data)
         except UnsupportedPNG as e:
             why = f"{e}; "
+    elif data.startswith(JPEG_SOI):
+        from vcoder_tpu_torch import native_io
+
+        rgb = native_io.decode_image(data)
+        if rgb is not None:
+            return rgb
+        why = f"the native library ({native_io.route()}) does not decode this JPEG; "
     else:
-        why = "the image is not a PNG; "
+        why = "the image is neither PNG nor JPEG; "
     try:
         from PIL import Image
     except ImportError:

@@ -10,12 +10,20 @@ Keys' cubic kernel with a = -0.5, its support widened by the downscale
 factor, weights normalized per output pixel. ``F.interpolate(mode="bicubic")``
 uses a = -0.75 and no antialiasing, so the separable weight matrices are
 built here and applied as two matmuls; the result is rounded and clipped to
-[0, 255] as PIL's uint8 output is (``preprocess.py:75``). The native C++
-pad/resize route of the JAX package is not ported.
+[0, 255] as PIL's uint8 output is (``preprocess.py:75``).
+
+:func:`load_images_preprocessed` (``preprocess.py:110``), the eval loaders'
+file reader, runs as the JAX package's native route does: decode, pad and
+resize across threads in C++ (``native_io.py``), then one
+:func:`resize_normalize` at the identity size on the device. The native
+pad/resize is not used by :func:`process_images`, which keeps the resize
+above.
 """
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Sequence, Union
 
 import numpy as np
@@ -129,3 +137,119 @@ def process_images(
         u8 = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
         outs.append(resize_normalize(u8[None], size=size, dtype=dtype)[0])
     return torch.stack(outs, dim=0)
+
+
+# How files read by decode_file and load_images_preprocessed were decoded:
+# "native" (the library's own route), "png" (png.decode_png where the library
+# decodes no PNG) and "PIL" (a file the library rejects).
+file_routes = {"native": 0, "png": 0, "PIL": 0}
+
+
+def _read_fallback(path: str, why: str) -> np.ndarray:
+    """A file the native library rejects: PIL where it is installed (as the
+    JAX package does), else a ``ValueError`` that names the file."""
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(
+            f"{path}: {why}; reading it needs PIL, which is not installed"
+        ) from None
+    return np.array(_to_numpy_rgb(Image.open(path).convert("RGB")))
+
+
+def _decode(path: str):
+    """(``[H, W, 3] uint8`` RGB, its route): see :func:`decode_file`."""
+    from vcoder_tpu_torch import native_io, png
+
+    with open(path, "rb") as f:
+        data = f.read()
+    rgb = native_io.decode_image(data)
+    if rgb is not None:
+        return rgb, "native"
+    if data.startswith(png.SIGNATURE) and not native_io.decodes_png():
+        try:
+            return png.decode_png(data), "png"
+        except png.UnsupportedPNG as e:
+            return _read_fallback(path, str(e)), "PIL"
+    return _read_fallback(
+        path, f"the native library ({native_io.route()}) does not decode it"), "PIL"
+
+
+def decode_file(path: str) -> np.ndarray:
+    """An image file -> ``[H, W, 3] uint8`` RGB: through the native library,
+    a PNG through ``png.decode_png`` where the library decodes no PNG (the
+    nvJPEG route), and a file those reject through PIL where it is
+    installed, else a ``ValueError`` that names it."""
+    rgb, route = _decode(path)
+    file_routes[route] += 1
+    return rgb
+
+
+def load_images_preprocessed(
+    paths: Sequence[str],
+    *,
+    size: int = 336,
+    image_aspect_ratio: str = "pad",
+    dtype=torch.float32,
+    n_threads: int = 8,
+    device="cuda",
+) -> torch.Tensor:
+    """Decode + pad + resize + CLIP-normalize a batch of image FILES
+    (``preprocess.py:110``): in ``pad`` mode the files decode, pad and resize
+    across ``n_threads`` C++ workers with the GIL released, then one
+    :func:`resize_normalize` on ``device`` normalizes the batch. A PNG the
+    library does not decode (its nvJPEG route) is read by ``png.decode_png``
+    and padded and resized natively; a file the library rejects goes
+    through PIL where it is installed (``preprocess.py:152-160``), else
+    raises a ``ValueError`` that names it. Other aspect modes decode
+    through :func:`decode_file`, then run :func:`process_images`. Missing
+    files raise."""
+    from vcoder_tpu_torch import native_io
+
+    dev = resolve_device(device)
+    if image_aspect_ratio != "pad":
+        return process_images(
+            [decode_file(p) for p in paths], image_aspect_ratio=image_aspect_ratio,
+            size=size, dtype=dtype, device=dev,
+        )
+    u8 = np.empty((len(paths), size, size, 3), np.uint8)
+    failed = []
+    pipe = native_io.PrefetchPipeline(min(n_threads, max(1, len(paths))), size=size, pad=True)
+    try:
+        for i, p in enumerate(paths):
+            pipe.submit(i, p)
+        for _ in paths:
+            jid, status, px = pipe.next_status()
+            if status == 0:
+                u8[jid] = px
+                file_routes["native"] += 1
+            else:
+                failed.append((jid, status))
+    finally:
+        pipe.close()
+    # PNGs the library does not decode (its nvJPEG route): png.decode_png and
+    # the native pad + resize across threads (zlib and the C calls release
+    # the GIL).
+    def own_route(jid):
+        rgb, route = _decode(paths[jid])
+        return native_io.pad_resize(rgb, size=size, pad=True), route
+
+    own = [jid for jid, status in failed if status == native_io.NOT_DECODED]
+    if own:
+        with ThreadPoolExecutor(min(n_threads, len(own))) as ex:
+            for jid, (px, route) in zip(own, ex.map(own_route, own)):
+                u8[jid] = px
+                file_routes[route] += 1
+    for jid, status in failed:
+        if status == native_io.NOT_DECODED:
+            continue
+        if not os.path.exists(paths[jid]):
+            raise FileNotFoundError(paths[jid])
+        else:
+            # PIL's own pad + BICUBIC resize, as the JAX package's per-file route.
+            sq = expand2square(_read_fallback(paths[jid], "the native library rejects it"))
+            file_routes["PIL"] += 1
+            from PIL import Image
+
+            u8[jid] = np.asarray(Image.fromarray(sq).resize((size, size), Image.BICUBIC))
+    return resize_normalize(torch.from_numpy(u8).to(dev), size=size, dtype=dtype)

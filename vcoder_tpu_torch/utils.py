@@ -8,9 +8,9 @@ capture of raw ``print``/traceback output into that log, the server
 error-message constants, and a moderation hook that is a no-op without an
 ``OPENAI_API_KEY``.
 
-Nothing in the port calls ``violates_moderation``, ``moderation_msg`` or
-``pretty_print_semaphore`` yet: they are kept for parity with the JAX
-package's API, for the gradio front end that is still to be ported.
+The gradio demo (``serve/gradio_app.py``) calls ``violates_moderation``;
+``moderation_msg`` and ``pretty_print_semaphore`` are kept for parity with
+the JAX package's API.
 
 ``build_logger`` points ``sys.stdout``/``sys.stderr`` at the log, so the
 port's serving modules call it from their ``main()`` only, never at import.
