@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``vcoder_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py                  # every phase (1-4, 6, 7, 8, 9, 5, 11a, 10, 11)
+    python3 chip_smoke.py                  # every phase (1-4, 6, 7, 8, 9, 12, 5, 11a, 10,
+                                           # 11, 13)
     python3 chip_smoke.py --profile        # also torch.profiler: two B=1 requests,
                                            # the paged engine's decode step at B=8,
                                            # in bf16, with int4/int8 weights and with
@@ -167,6 +168,30 @@ Phases, in order; any failure exits non-zero:
    32 flash launches per batched prefill, 23 ViT blocks per tower pass, no
    paged launch; one finite DS >= 0 per key. Logs the load seconds, the eval
    wall, tokens/s and ms a step of ``generate``, the answers' sha1 and the DS.
+12. The slot engine (``serve/engine.py``'s ``ServingEngine``: a dense KV
+   cache per slot) at full width, after phase 9, on the phase-4 weights and
+   engine A's traffic (8 requests of 32 tokens, EOS off, all submitted at
+   once through ``EngineWorker.from_engine``; ``max_batch`` 8, ``max_len``
+   2048): S1 a bf16 cache, S2 an int8 cache (``kv_quant``), S3 S1 with
+   ``speculative=4, sync_every=4`` (the fused speculative windows), S4 the
+   weights quantized to int8 on the card with an int8 cache. Gates: per
+   admission 32 flash launches, 23 ViT blocks on the bf16 tower (0 on the
+   quantized one) and 362 scaled int8 GEMMs in S4, no paged launch and no
+   other kernel; every S1 and S3 token replayed on ``generate``'s decode
+   path under phase 10's rule; S2's prefill logits within
+   ``SLOT_PREFILL_REL_L2`` of S1's. Logs each engine's TTFT p50, aggregate
+   decode tok/s, step wall p50 and cache bytes.
+13. A training stage from files, in phase 10's checkpoint directory after
+   phase 11: ``make_train_tree`` writes COST's training layout (three
+   buckets, photos, panoptic and depth maps from the repo's pictures,
+   ``<task>.txt`` and ``panoptic_order.txt``); ``vcoder_ds_train``'s parser
+   and ``run_stage`` train 4 steps of B=4 in this process (and its
+   ``--help`` runs as a subprocess). Gates: 4 finite losses, non-zero
+   seg-projector and ``vcoder_lm_emb`` gradient norms on every step, per
+   step 32 K6 calls, 64 flash launches and 23 ViT blocks and no other
+   kernel, and ``adapters.safetensors``, ``checkpoint-4`` and ``final/``
+   (``model_type`` ``vcoder_ds_llava``) written. Logs step ms, valid
+   tokens/s, peak memory and the files' decode routes.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -181,6 +206,7 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3028,18 +3054,24 @@ def _reset_counters() -> None:
     from vcoder_tpu_torch.ops import paged_attention as pa
     from vcoder_tpu_torch.ops import vit_attention as va
 
-    fa.launches = va.launches = va.launches_mlp = i4.launches = 0
+    fa.launches = fa.bwd_launches = va.launches = va.launches_mlp = i4.launches = 0
     pa.reset_launches()
     i8.reset_launches()
 
 
 def _counters() -> dict:
+    """Every launch counter: K1, K6 calls, K2, K9, K8, the paged kernels
+    (any body), K5, K10 in both forms."""
     from vcoder_tpu_torch.ops import flash_attention as fa
+    from vcoder_tpu_torch.ops import int4_matmul as i4
+    from vcoder_tpu_torch.ops import int8_matmul as i8
     from vcoder_tpu_torch.ops import paged_attention as pa
     from vcoder_tpu_torch.ops import vit_attention as va
 
-    return dict(flash=fa.launches, vit=va.launches, k8=pa.launches_k8,
-                paged=pa.launches_bf16 + pa.launches_q8 + pa.launches_k8 + pa.launches_fused)
+    return dict(flash=fa.launches, flash_bwd=fa.bwd_launches, vit=va.launches,
+                mlp=va.launches_mlp, k8=pa.launches_k8,
+                paged=pa.launches_bf16 + pa.launches_q8 + pa.launches_k8 + pa.launches_fused,
+                int4=i4.launches, int8=i8.launches, int8_scaled=i8.launches_scaled)
 
 
 def _dense_gate(label: str, prefills: int) -> dict:
@@ -3786,6 +3818,350 @@ def phase_cost_eval(ckpt: str, prep: dict, tok, device: str = "cuda") -> dict:
         shutil.rmtree(tree["root"], ignore_errors=True)
 
 
+# Phase 12: the slot engine (a dense KV cache per slot) at full width.
+# S2's prefill logits against S1's, relative L2 per request: int8 K/V
+# (per-vector absmax scales) under the prefill's flash route over the
+# dequantized layer.
+SLOT_PREFILL_REL_L2 = 0.1
+SLOT_ENGINES = (("S1 (bf16 cache)", {}),
+                ("S2 (int8 cache)", {"kv_quant": True}),
+                ("S3 (bf16 cache, speculative 4, sync_every 4)",
+                 {"speculative": 4, "sync_every": 4}))
+
+
+def _slot_gate(label: str, c: dict, n: int, quantized_weights: bool) -> None:
+    """A slot engine's launches over ``n`` admissions: 32 K1 each, 23 K2
+    each on a bf16 tower (0 on a quantized one), 362 scaled K10 each with
+    int8 weights (the W8A8 prefill), and nothing else: no paged kernel (the
+    dense cache decodes and verifies on the plain attention route), no K5,
+    no backward."""
+    want = dict(flash=32 * n, flash_bwd=0, vit=0 if quantized_weights else 23 * n, mlp=0,
+                k8=0, paged=0, int4=0, int8=0,
+                int8_scaled=362 * n if quantized_weights else 0)
+    if c != want:
+        raise SystemExit(f"slot engine {label}: launches {c} over {n} admissions, want {want}")
+
+
+def _run_slot(label, cfg, params, preps, *, max_new, device="cuda", **kw):
+    """Build a slot engine (``ServingEngine``, max_batch 8, max_len 2048,
+    EOS off) and serve ``preps`` through ``EngineWorker.from_engine``, all
+    submitted at once, the counters set to 0 just before and read just
+    after; each admission's prefill logits are kept. Returns (results,
+    stats)."""
+    import torch
+
+    from vcoder_tpu_torch.serve.engine import ServingEngine
+    from vcoder_tpu_torch.serve.engine_server import EngineWorker
+
+    eng = ServingEngine(cfg, params, max_batch=8, max_len=2048, eos_id=-1, device=device, **kw)
+    c = eng.cache
+    cache_bytes = sum(t.numel() * t.element_size() for t in (c.k, c.v, c.k_scale, c.v_scale)
+                      if t is not None)
+    scale_bytes = sum(t.numel() * t.element_size() for t in (c.k_scale, c.v_scale)
+                      if t is not None)
+    prefill_logits = {}
+    sample_first = eng._sample_first
+
+    def keep(logits, req):
+        prefill_logits[req.request_id] = logits.float().cpu()
+        return sample_first(logits, req)
+
+    eng._sample_first = keep
+    worker = EngineWorker.from_engine(eng, model_name="vcoder_ds_llava-7b", eos_id=-1)
+    try:
+        _reset_counters()
+        res, wall = _drive(worker, preps)
+        _sync(device)
+        counts = _counters()
+    finally:
+        worker.shutdown()
+        eng.close()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    bad = [r for r in res if r["err"] is not None or len(r["tokens"]) != max_new]
+    if bad:
+        raise SystemExit(f"slot engine {label}: requests did not complete: {bad[:2]}")
+    steps = eng.timer.samples.get("decode_step", [])
+    n_tok = sum(len(r["tokens"]) - 1 for r in res)
+    st = dict(counts=counts, ttft_p50_ms=float(np.median([r["ttft_s"] for r in res])) * 1e3,
+              decode_tok_s=n_tok / sum(steps), step_p50_ms=float(np.median(steps)) * 1e3,
+              steps=len(steps), wall_s=wall, cache_gb=cache_bytes / 1e9,
+              scale_gb=scale_bytes / 1e9,
+              logits=[prefill_logits[i] for i in sorted(prefill_logits)],
+              digest=_digest([r["tokens"] for r in res]))
+    log(f"  slot engine {label}: {len(res)} requests x {max_new} tokens in {wall:.2f} s; TTFT "
+        f"p50 {st['ttft_p50_ms']:.1f} ms; aggregate decode {st['decode_tok_s']:.1f} tok/s "
+        f"({n_tok} tokens after the first over {sum(steps):.2f} s of decode steps); step wall "
+        f"p50 {st['step_p50_ms']:.2f} ms over {len(steps)} steps; cache {st['cache_gb']:.2f} GB "
+        f"({st['scale_gb'] * 1e3:.1f} MB of it scales); launches {json.dumps(counts)}; tokens "
+        f"sha1 {st['digest']}")
+    return res, st
+
+
+def _replay_gate(label, params, cfg, preps, res, pixels) -> list:
+    """Every token of each row, replayed on ``generate``'s decode path with
+    the row's own prefix (phase 10's rule): the decode row's top logit, or
+    short of it by no more than one bf16 ulp or the two routes' spread
+    there. Returns the near-ties (request, position, gap, spread, ulp)."""
+    ties = []
+    for i, (prep, r) in enumerate(zip(preps, res)):
+        gaps = _replay_gaps(params, cfg, list(prep.input_ids), pixels[i], r["tokens"])
+        for j, (g, d, u) in enumerate(gaps):
+            if g == 0:
+                continue
+            ties.append((i, j, g, d, u))
+            if not g <= max(u, d):
+                raise SystemExit(f"slot engine {label}: request {i}'s token {j} falls below the "
+                                 f"decode path's top logit by {g} (one ulp {u}, the routes' "
+                                 f"spread {d})")
+    return ties
+
+
+def phase_slot_engine(cfg, params, model, preps, device="cuda", quantized=True) -> dict:
+    """Phase 12: the slot engine at full width, engine A's traffic (``preps``:
+    8 requests of 32 tokens, EOS off) through ``EngineWorker.from_engine``.
+    S1: a bf16 dense cache; S2: an int8 cache (``kv_quant``); S3: S1 with
+    ``speculative=4, sync_every=4`` (the fused speculative windows); S4
+    (``quantized``): the weights quantized to int8 on the card with an int8
+    cache (bench.py's ``sec_serve_int8_b8``). Gates: launches per admission
+    (:func:`_slot_gate`); every S1 and S3 token on ``generate``'s decode
+    path under phase 10's replay rule (so S1's first tokens are the B=1
+    prefill's and its tokens ``generate``'s up to a near-tie, and S3's are
+    S1's likewise); S2's prefill logits within ``SLOT_PREFILL_REL_L2`` of
+    S1's. Returns the launch totals."""
+    import torch
+
+    t_phase = time.perf_counter()
+    max_new = preps[0].max_new_tokens
+    dtype = params["lm"]["embed_tokens"].dtype
+    pixels = [[torch.as_tensor(x).to(device, dtype) for x in (p.images, p.segs, p.depths)]
+              for p in preps]
+    n = len(preps)
+    runs = {}
+    for label, kw in SLOT_ENGINES:
+        res, st = _run_slot(label, cfg, params, preps, max_new=max_new, device=device, **kw)
+        _slot_gate(label, st["counts"], n, False)
+        runs[label[:2]] = (res, st)
+    (r1, s1), (r2, s2), (r3, s3) = runs["S1"], runs["S2"], runs["S3"]
+
+    greedy = [model.generate([list(p.input_ids)], *px, max_new_tokens=max_new).sequences[0]
+              .tolist() for p, px in zip(preps, pixels)]
+    _sync(device)
+    first_eq = sum(int(g[0] == r["tokens"][0]) for g, r in zip(greedy, r1))
+    diverge = [next((j for j in range(max_new) if g[j] != r["tokens"][j]), None)
+               for g, r in zip(greedy, r1)]
+    ties1 = _replay_gate("S1", params, cfg, preps, r1, pixels)
+    ties3 = _replay_gate("S3", params, cfg, preps, r3, pixels)
+    s3_eq = sum(int(a == b) for x, y in zip(r1, r3) for a, b in zip(x["tokens"], y["tokens"]))
+    log(f"  S1 vs generate (B=1, prompt padded to generate's length, not the engine's bucket): "
+        f"first tokens {first_eq}/{n} equal; first divergence per request {diverge}; every S1 "
+        f"token replayed on the decode path: {len(ties1)} not the top logit, at (request, "
+        f"position, gap, spread, ulp) {ties1}")
+    log(f"  S3 vs S1: {s3_eq}/{n * max_new} tokens equal; every S3 token replayed: {len(ties3)} "
+        f"not the top logit, at {ties3}")
+
+    rels = [((b - a).norm() / a.norm()).item() for a, b in zip(s1["logits"], s2["logits"])]
+    s2_eq = sum(int(a == b) for x, y in zip(r1, r2) for a, b in zip(x["tokens"], y["tokens"]))
+    s2_first = sum(int(x["tokens"][0] == y["tokens"][0]) for x, y in zip(r1, r2))
+    ok = max(rels) <= SLOT_PREFILL_REL_L2 and all(np.isfinite(rels))
+    log(f"  S2 vs S1: prefill logits rel L2 per request {[round(x, 5) for x in rels]} (bound "
+        f"{SLOT_PREFILL_REL_L2}) -> {'ok' if ok else 'FAIL'}; first tokens {s2_first}/{n} "
+        f"equal; {s2_eq}/{n * max_new} tokens equal to S1's")
+    if not ok:
+        raise SystemExit("slot engine S2: the int8 cache's prefill logits stray from S1's")
+
+    totals = {k: 0 for k in ("flash", "vit", "int8_scaled")}
+    for _, st in runs.values():
+        for k in totals:
+            totals[k] += st["counts"][k]
+    stats = {k: {m: st[m] for m in ("ttft_p50_ms", "decode_tok_s", "step_p50_ms", "cache_gb")}
+             for k, (_, st) in runs.items()}
+    if quantized:
+        from vcoder_tpu_torch.quant import quantize_params
+
+        q8 = quantize_params(params, bits=8, destroy=False)
+        label = "S4 (int8 weights, int8 cache)"
+        r4, s4 = _run_slot(label, cfg, q8, preps, max_new=max_new, device=device,
+                           kv_quant=True)
+        _slot_gate(label, s4["counts"], n, True)
+        del q8
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        s4_eq = sum(int(a == b) for x, y in zip(r2, r4) for a, b in zip(x["tokens"], y["tokens"]))
+        log(f"  S4 vs S2: {s4_eq}/{n * max_new} tokens equal (a reading: int8 weights)")
+        for k in totals:
+            totals[k] += s4["counts"][k]
+        stats["S4"] = {m: s4[m] for m in ("ttft_p50_ms", "decode_tok_s", "step_p50_ms",
+                                          "cache_gb")}
+    log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s; "
+        f"{json.dumps({k: {m: round(v, 2) for m, v in s.items()} for k, s in stats.items()})}")
+    return totals
+
+
+# Phase 13: a training stage from files. COST's training layout
+# (tests/test_train_pipeline.py::_make_cost_tree's) on the repo's pictures.
+TRAIN_BUCKETS = ("train", "unlabeled", "test")
+TRAIN_STEPS = 4
+
+
+def make_train_tree(root: str) -> None:
+    """COST's training tree of ``COST_KEYS`` in each bucket: photos under
+    ``coco/<bucket>2017/``, panoptic maps under every
+    ``coco_segm_text/<bucket>/<task>_inference/``, depth maps under
+    ``coco_segm_text/depth/<bucket>/depth/`` (each cycled, named like its
+    key), the answers in ``<task>.txt`` and the depth orders in
+    ``panoptic_order.txt``, in COST's ``<IMG>key<IMG>answer`` lines."""
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def copy(files, d):
+        os.makedirs(d, exist_ok=True)
+        for i, key in enumerate(COST_KEYS):
+            shutil.copyfile(os.path.join(here, files[i % len(files)]), os.path.join(d, key))
+
+    def lines(path, text):
+        with open(path, "w") as f:
+            for key, order in zip(COST_KEYS, COST_ORDERS):
+                f.write(f"<IMG>{key}<IMG>{text}{order}\n")
+
+    for bucket in TRAIN_BUCKETS:
+        segm = os.path.join(root, "coco_segm_text", bucket)
+        for task in ("panoptic", "semantic", "instance"):
+            copy(COST_SEGS, os.path.join(segm, f"{task}_inference"))
+            lines(os.path.join(segm, f"{task}.txt"), "The objects present in the image are: ")
+        ddir = os.path.join(root, "coco_segm_text", "depth", bucket)
+        copy(COST_DEPTHS, os.path.join(ddir, "depth"))
+        lines(os.path.join(ddir, "panoptic_order.txt"),
+              "The depth order for the objects present in the image is: ")
+        copy(COST_PHOTOS, os.path.join(root, "coco", f"{bucket}2017"))
+
+
+def phase_train_stage(ckpt: str, device: str = "cuda") -> dict:
+    """Phase 13: the VCoder-DS training stage as
+    ``scripts/v1_5/train_torch/vcoder_ds_train.sh`` runs it, from the
+    checkpoint directory ``ckpt`` over a COST tree written by
+    :func:`make_train_tree`: ``vcoder_ds_train``'s parser and ``run_stage``
+    in this process (so the launch counters can be read), B=4,
+    ``--model-max-length 2048``, ``--max-steps 4``, 8 loader threads; and
+    the module's ``--help`` as a subprocess. Gates: 4 finite losses in
+    ``metrics.jsonl``; non-zero seg-projector and ``vcoder_lm_emb``
+    gradient norms on every step; per step 32 K6 calls, 64 K1 launches and
+    23 ViT blocks, and no other kernel; ``adapters.safetensors``, the step
+    checkpoint and ``final/`` written, ``final/config.json`` naming
+    ``vcoder_ds_llava``. Returns the launch counts."""
+    import gc
+
+    import torch
+
+    from vcoder_tpu_torch import native_io
+    from vcoder_tpu_torch.train import trainer as trainer_mod
+    from vcoder_tpu_torch.train import vcoder_ds_train
+
+    t_phase = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "vcoder_tpu_torch.train.vcoder_ds_train",
+                           "--help"], capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0 or "--seg-data-path" not in proc.stdout:
+        raise SystemExit(f"train stage: the module's --help exits {proc.returncode}\n"
+                         f"{proc.stderr[-2000:]}")
+    help_s = time.perf_counter() - t_phase
+    tmp = tempfile.mkdtemp(prefix="vcoder_train_stage_")
+    try:
+        tree, out = os.path.join(tmp, "cost"), os.path.join(tmp, "out")
+        make_train_tree(tree)
+        argv = ["--model-path", ckpt, "--seg-data-path", tree, "--depth-data-path", tree,
+                "--image-folder", tree, "--output-dir", out,
+                "--per-device-train-batch-size", "4", "--model-max-length", "2048",
+                "--max-steps", str(TRAIN_STEPS), "--device", device]
+        records = []
+        make_step = trainer_mod.make_train_step
+
+        def timed_make(*a, **kw):
+            inner = make_step(*a, **kw)
+
+            def timed(p, state, batch):
+                t0 = time.perf_counter()
+                if device == "cuda":
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                res = inner(p, state, batch)
+                if device == "cuda":
+                    end.record()
+                    torch.cuda.synchronize()
+                    ms = start.elapsed_time(end)
+                else:
+                    ms = (time.perf_counter() - t0) * 1e3
+                records.append(dict(ms=ms, T=int(batch["safe_ids"].shape[1]),
+                                    tokens=int(batch["attn_mask"].sum()),
+                                    norms={k: float(v) for k, v
+                                           in res[2]["leaf_grad_norms"].items()}))
+                return res
+
+            return timed
+
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        trainer_mod.make_train_step = timed_make
+        t0 = time.perf_counter()
+        try:
+            trainer = vcoder_ds_train.main(argv)
+        finally:
+            trainer_mod.make_train_step = make_step
+        _sync(device)
+        wall = time.perf_counter() - t0
+        counts = _counters()
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+        routes, n_entries = dict(trainer.dataset.routes), len(trainer.dataset)
+        del trainer
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        with open(os.path.join(out, "final", "config.json")) as f:
+            final_type = json.load(f).get("model_type")
+        files = dict(adapters=os.path.isfile(os.path.join(out, "adapters.safetensors")),
+                     checkpoint=os.path.isfile(os.path.join(out, f"checkpoint-{TRAIN_STEPS}",
+                                                            "state.safetensors")),
+                     final=os.path.isfile(os.path.join(out, "final", "model.safetensors")))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for m, r in zip(metrics, records):
+        seg = max(v for k, v in r["norms"].items() if k.startswith("seg_projector/"))
+        log(f"  train stage step {m['step']}: T={r['T']} B=4, {r['tokens']} tokens, "
+            f"{r['ms']:.1f} ms, {r['tokens'] / r['ms'] * 1e3:.0f} tokens/s, loss "
+            f"{m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, seg projector grad norm "
+            f"{seg:.4g}, vcoder_lm_emb {r['norms']['vcoder_lm_emb']:.4g}")
+    bad = []
+    if len(metrics) != TRAIN_STEPS or len(records) != TRAIN_STEPS or not all(
+            np.isfinite([m["loss"], m["grad_norm"]]).all() for m in metrics):
+        bad.append(f"{len(metrics)} metrics lines, {len(records)} steps, or a non-finite loss")
+    if not all(any(v > 0 for k, v in r["norms"].items() if k.startswith("seg_projector/"))
+               and r["norms"]["vcoder_lm_emb"] > 0 for r in records):
+        bad.append("a zero seg_projector / vcoder_lm_emb gradient")
+    want = dict(flash=64 * TRAIN_STEPS, flash_bwd=32 * TRAIN_STEPS, vit=23 * TRAIN_STEPS, mlp=0,
+                k8=0, paged=0, int4=0, int8=0, int8_scaled=0)
+    if counts != want:
+        bad.append(f"launches {counts} != {want}")
+    if not all(files.values()) or final_type != "vcoder_ds_llava":
+        bad.append(f"outputs {files}, final/config.json model_type {final_type!r}")
+    if bad:
+        raise SystemExit("train stage: " + "; ".join(bad))
+    ms_p50 = float(np.median([r["ms"] for r in records[1:]]))
+    tok_s = float(np.median([r["tokens"] / r["ms"] * 1e3 for r in records[1:]]))
+    log(f"  train stage: {n_entries} entries from the COST tree; run_stage {wall:.1f} s (load, "
+        f"{TRAIN_STEPS} steps, checkpoint, adapters, final/); steps 2-{TRAIN_STEPS} p50 "
+        f"{ms_p50:.1f} ms, {tok_s:.0f} valid tokens/s; peak {peak:.2f} GiB allocated; files "
+        f"decoded {json.dumps(routes)} (native: the library's {native_io.route()} route) by 8 "
+        f"loader threads; --help subprocess {help_s:.1f} s; launches {json.dumps(counts)}; "
+        f"final/config.json model_type {final_type}; phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(flash=counts["flash"], flash_bwd=counts["flash_bwd"], vit=counts["vit"],
+                step_ms_p50=ms_p50, tokens_s=tok_s, peak_gib=peak)
+
+
 def main() -> int:
     import torch
 
@@ -3836,23 +4212,26 @@ def main() -> int:
     log("fused append, fused MLP and multi-LoRA (phase 9): VCoder-DS-7B, the phase-4 weights")
     p9_counts = phase_fused_lora(cfg, params, model, tok, engine_a, main_counts["ttft_p50_ms"])
     lap("fused_lora")
+    log("slot engine (phase 12): VCoder-DS-7B, max_batch 8, max_len 2048, engine A's traffic")
+    p12 = phase_slot_engine(cfg, params, model, engine_a["preps"])
+    lap("slot_engine")
     held = [params, model]  # phase 10 drops them once its checkpoint is written
     del params, model
     # Each entry's launches: the sum over the driven paths, each counted from
     # 0 just before it ran and read just after.
     launches = {
         "flash_fwd": (main_counts["flash_fwd"] + engine_counts["flash"] + quant_counts["flash"]
-                      + train_counts["flash_fwd"]),
+                      + train_counts["flash_fwd"] + p12["flash"]),
         "flash_fwd_train": train_counts["flash_fwd"],
         "flash_bwd": train_counts["flash_bwd"],
         "vit_block": (main_counts["vit_block"] + engine_counts["vit"] + quant_counts["vit"]
-                      + train_counts["vit_block"]),
+                      + train_counts["vit_block"] + p12["vit"]),
         "paged_attn_bf16": engine_counts["bf16"] + quant_counts["bf16"],
         "paged_attn_q8": engine_counts["q8"] + quant_counts["q8"],
         "paged_attn_k8": engine_counts["k8"] + quant_counts["k8"],
         "int4_matmul": quant_counts["int4"],
         "int8_mm": quant_counts["int8"],
-        "int8_mm_scaled": quant_counts["int8_scaled"],
+        "int8_mm_scaled": quant_counts["int8_scaled"] + p12["int8_scaled"],
         "paged_attn_fused": p9_counts["fused"],
         "vit_mlp": p9_counts["mlp"],
     }
@@ -3863,12 +4242,19 @@ def main() -> int:
     prep = cost_eval_prepare(cfg, held, tok10)
     lap("cost_prepare")
     log("surfaces (phase 10): VCoder-DS-7B bf16, the phase-4 weights and requests")
-    p11 = {}
-    p10 = phase_surfaces(cfg, held, tok10, main_counts["requests"],
-                         then=lambda d: p11.update(phase_cost_eval(d, prep, tok10)))
-    lap("surfaces_and_cost_eval")
-    launches["flash_fwd"] += p10["flash"] + p11["flash"]
-    launches["vit_block"] += p10["vit"] + p11["vit"]
+    p11, p13 = {}, {}
+
+    def in_checkpoint_dir(d):
+        p11.update(phase_cost_eval(d, prep, tok10))
+        log("training stage from files (phase 13): vcoder_ds_train over a COST tree, B=4")
+        p13.update(phase_train_stage(d))
+
+    p10 = phase_surfaces(cfg, held, tok10, main_counts["requests"], then=in_checkpoint_dir)
+    lap("surfaces_cost_eval_train_stage")
+    launches["flash_fwd"] += p10["flash"] + p11["flash"] + p13["flash"]
+    launches["flash_fwd_train"] += p13["flash"]
+    launches["flash_bwd"] += p13["flash_bwd"]
+    launches["vit_block"] += p10["vit"] + p11["vit"] + p13["vit"]
     launches["paged_attn_k8"] += p10["k8"]
     for entry in report:
         entry["launches"] = launches[entry["name"]]

@@ -11,7 +11,8 @@ packages (in f32: both ``load_pretrained_model`` calls are wrapped to pass
 * ``server.serve`` and ``engine_server.serve`` on port 0 stream the same
   texts as JAX's two workers, the engine worker with concurrent clients;
 * the engine worker cancels on the stop string, answers ``/health`` and
-  ``/stats``, and refuses the slot engine.
+  ``/stats``; with ``engine="slot"`` it serves the slot engine, whose text
+  is ``generate``'s and the JAX slot worker's.
 
 Every HTTP call has a socket timeout and every thread join a timeout, so a
 hang fails a test instead of stalling the suite.
@@ -299,10 +300,31 @@ def test_engine_worker_errors_match_jax(engine_workers, case):
 
 
 def test_engine_worker_refuses_slot_engine(chats):
-    from vcoder_tpu_torch.serve.engine_server import EngineWorker
+    """(Named when the slot engine was refused.) ``EngineWorker(dir,
+    engine="slot")`` builds the slot engine over the checkpoint and answers
+    a request over HTTP with ``generate``'s tokens (the Chat worker's text
+    at lookahead 0) and the JAX slot worker's chunks."""
+    from vcoder_tpu.serve import engine_server as jes
+    from vcoder_tpu_torch.serve import engine_server as tes
+    from vcoder_tpu_torch.serve.engine import ServingEngine
 
-    with pytest.raises(NotImplementedError, match="slot engine"):
-        EngineWorker(chats[0], device="cpu", engine="slot")
+    kw = dict(engine="slot", max_batch=2, max_len=256, attn_impl="xla")
+    with f32_loads():
+        jw = jes.EngineWorker(chats[0], **kw)
+        tw = tes.EngineWorker(chats[0], device="cpu", **kw)
+    try:
+        assert type(tw.engine) is ServingEngine and tw.engine.cache.k.shape[2] == 257
+        with running(jes.serve(jw, "127.0.0.1", 0)) as jbase, \
+                running(tes.serve(tw, "127.0.0.1", 0)) as tbase:
+            ref = _post(jbase, request(lookahead=0))
+            got = _post(tbase, request(lookahead=0))
+    finally:
+        jw.shutdown()
+        tw.shutdown()
+    assert got == ref and len(got) == 8 and all(p["error_code"] == 0 for p in got)
+    want = [json.loads(c[:-1])["text"]
+            for c in chats[2].generate_stream_gate(request(lookahead=0))]
+    assert [p["text"] for p in got] == want
 
 
 def test_engine_worker_flags_build_the_served_worker(chats):
@@ -330,6 +352,18 @@ def test_engine_worker_flags_build_the_served_worker(chats):
         assert len(got) == 5 and all(p["error_code"] == 0 for p in got)
     finally:
         worker.shutdown()
-    with pytest.raises(NotImplementedError, match="slot engine"):
-        tes.worker_from_args(ap.parse_args(["--model-path", chats[0], "--device", "cpu",
-                                            "--engine", "slot"]))
+    # --engine slot: the slot engine at those flags (--page-size ignored).
+    args = ap.parse_args(["--model-path", chats[0], "--device", "cpu", "--engine", "slot",
+                          "--max-batch", "2", "--max-len", "256", "--kv-quant",
+                          "--sync-every", "2"])
+    with f32_loads():
+        worker = tes.worker_from_args(args)
+    try:
+        eng = worker.engine
+        assert (type(eng).__name__, eng.max_batch, eng.sync_every) == ("ServingEngine", 2, 2)
+        assert eng.cache.quantized and eng.cache.k.shape[2] == 256 + 2
+        with running(tes.serve(worker, "127.0.0.1", 0)) as base:
+            got = _post(base, request(max_new_tokens=5))
+        assert len(got) == 5 and all(p["error_code"] == 0 for p in got)
+    finally:
+        worker.shutdown()

@@ -96,8 +96,9 @@ def test_cancel_and_shutdown_end_streams(setup):
 
 def test_checkpoint_constructor_serves_and_slot_raises(tmp_path):
     """``EngineWorker(model_path)`` loads the checkpoint through ``Chat``,
-    builds a paged engine over it and serves; only the slot engine still
-    raises."""
+    builds a paged engine over it and serves; with ``engine="slot"`` (named
+    when that raised) it builds the slot engine, drops ``page_size`` as the
+    JAX worker does, and serves the same tokens."""
     from vcoder_tpu_torch.checkpoint import save_pretrained
     from vcoder_tpu_torch.simple_tokenizer import SimpleTokenizer
 
@@ -118,8 +119,14 @@ def test_checkpoint_constructor_serves_and_slot_raises(tmp_path):
     finally:
         worker.shutdown()
     assert not worker._thread.is_alive()
-    with pytest.raises(NotImplementedError):
-        EngineWorker(path, device="cpu", engine="slot", max_batch=2, max_len=256, page_size=8,
-                     attn_impl="xla")
-    with pytest.raises(NotImplementedError, match="slot engine"):
-        EngineWorker(path, device="cpu", engine="slot")
+    paged_events = events
+    worker = EngineWorker(path, device="cpu", engine="slot", max_batch=2, max_len=256,
+                          page_size=8, attn_impl="xla")
+    try:
+        assert type(worker.engine).__name__ == "ServingEngine"
+        events = list(worker.submit(_prep(0, pics, max_new=4)))
+    finally:
+        worker.shutdown()
+    assert events == paged_events
+    with pytest.raises(ValueError, match="unknown engine"):
+        EngineWorker(path, device="cpu", engine="dense")

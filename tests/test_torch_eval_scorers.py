@@ -148,8 +148,8 @@ def test_ds_missing_object_penalty(pkg):
 
 def test_questions_match_jax():
     """The port's copy of the question banks and paragraph suffixes. (The
-    JAX file's test of ``data_utils``'s QA synthesis has no counterpart
-    here: ``data_utils`` is not ported yet.)"""
+    JAX file's test of ``data_utils``'s QA synthesis has its counterpart in
+    tests/test_torch_train_datasets.py.)"""
     import vcoder_tpu.questions as jq
     import vcoder_tpu_torch.questions as tq
 

@@ -134,8 +134,10 @@ def test_paged_engine_and_worker_raise_without_cuda(no_cuda):
     meta = _map_tensors(params, lambda t: t.to("meta"))
     with pytest.raises(ValueError, match="params lie on"):
         PagedServingEngine(cfg, meta, max_len=256, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, params, device="cpu")  # the slot engine waits
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, params, max_len=256)  # the slot engine: device="cuda" by default
+    slot = ServingEngine(cfg, params, max_len=256, device="cpu")
+    assert slot.cache.k.device.type == "cpu"
     with pytest.raises(ValueError, match="no LoRA targets"):
         PagedServingEngine(cfg, params, max_len=256, device="cpu", lora_adapters={"a": {}})
     eng = PagedServingEngine(cfg, params, max_len=256, device="cpu")

@@ -3,8 +3,8 @@ engines, the ``model_base`` loaders) against the JAX package on the CPU.
 
 Mirrors tests/test_multilora.py and tests/test_lora.py. Adapters are made
 with numpy and handed to both packages (``jax.random`` and ``torch`` draw
-different numbers). The port has no slot engine yet, so the engine tests
-run the paged engine. f32 throughout: products agree to 1e-5, greedy tokens
+different numbers). The engine tests run the paged engine, and the slot
+engine on one mixed batch. f32 throughout: products agree to 1e-5, greedy tokens
 exactly; merged checkpoint weights to 1e-6 (the f32 products ``B @ A`` of
 numpy and torch may differ in the last bit).
 """
@@ -295,6 +295,24 @@ def test_mixed_batch_matches_single_adapter_engines_and_jax(setup):
     assert mixed[1] == single("y", [JOBS[1][0]])[0]
     assert mixed[2] == single(None, [JOBS[2][0]])[0]
     assert len({tuple(m) for m in mixed[:3]}) == 3  # adapters change tokens
+
+
+@pytest.mark.parametrize("kw", [{}, {"kv_quant": True, "speculative": 3, "sync_every": 2}],
+                         ids=["bf16", "int8_fused_spec"])
+def test_slot_engine_mixed_batch_matches_jax(setup, kw):
+    """The slot engine serves the same mixed batch (rows x, y, none, x) as the
+    JAX slot engine, with a bf16-layout cache and with an int8 cache under
+    fused speculative windows; its rows equal the paged engine's."""
+    from vcoder_tpu.serve.engine import ServingEngine as JSlot
+    from vcoder_tpu_torch.serve.engine import ServingEngine as TSlot
+
+    s = setup
+    skw = dict(max_batch=4, max_len=256, attn_impl="xla", **kw)
+    got = _serve(TSlot(s["tcfg"], s["tp"], lora_adapters=s["tad"], device="cpu", **skw), JOBS)
+    assert got == _serve(JSlot(s["jcfg"], s["jp"], lora_adapters=s["jad"], **skw), JOBS)
+    if not kw:
+        assert got == _serve(PagedServingEngine(s["tcfg"], s["tp"], lora_adapters=s["tad"],
+                                                device="cpu", **KW), JOBS)
 
 
 def test_speculative_int8_pools_multilora_matches_jax(setup):

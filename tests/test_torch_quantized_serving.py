@@ -216,8 +216,8 @@ def test_greedy_generate_matches_jax(setup, bits, w8a8_at_16):
 @pytest.mark.parametrize("bits", [4, 8])
 def test_paged_engine_matches_jax_generate(setup, bits):
     """Mirrors tests/test_engine.py::test_int4_engine_matches_fused_generate
-    (paged engine only: the port's slot engine waits); int8 with int8 pools
-    too."""
+    (the paged engine here; the slot engine's is mirrored in
+    tests/test_torch_slot_engine.py); int8 with int8 pools too."""
     ref = _jax_tokens(setup, bits, pad_to=512)
     for kv_quant in ((False, True) if bits == 8 else (False,)):
         eng = PagedServingEngine(setup["tcfg"], setup[f"tq{bits}"], max_batch=2, max_len=768,

@@ -19,13 +19,18 @@
   the cache-free (training) path: ``True`` recomputes the whole layer in the
   backward, ``"dots"`` keeps the projection products and recomputes the rest
   (the analog of ``dots_with_no_batch_dims_saveable``).
-* The dense :class:`KVCache` (``:122-168``, unquantized form) is updated IN
-  PLACE: each layer's new K/V rows are written into the preallocated
-  ``[L, B, S, KH, HD]`` tensors (JAX's functional carry is no model for
-  PyTorch). Writes land at ``write_offset + arange(T)`` per row
-  (``:249-258``); ``kv_mask`` marks only ``[offset, offset + n_valid)``
-  (``:234-239``); pad rows write garbage that ``kv_mask`` never marks and a
-  later write at the same slot overwrites.
+* The dense :class:`KVCache` (``:122-168``) is updated IN PLACE: each
+  layer's new K/V rows are written into the preallocated ``[L, B, S, KH,
+  HD]`` tensors (JAX's functional carry is no model for PyTorch). Writes
+  land at ``write_offset + arange(T)`` per row (``:249-258``); ``kv_mask``
+  marks only ``[offset, offset + n_valid)`` (``:234-239``); pad rows write
+  garbage that ``kv_mask`` never marks and a later write at the same slot
+  overwrites. A quantized cache (``create(quantized=True)``) holds int8 K/V
+  and f32 per-vector scales ``[L, B, S, KH, 1]``: each layer quantizes its
+  K/V with :func:`_kv_quantize` and writes values and scales; a window of at
+  most ``QUANT_FOLD_T_MAX`` tokens attends with the scales folded into the
+  plain route, a longer one (a prefill) over the layer's dequantized copy on
+  the flash route (``:272-308``).
 """
 
 from __future__ import annotations
@@ -107,24 +112,40 @@ class KVCache:
     """Static-size dense KV cache.
 
     k, v: [L, B, S_max, KH, HD]; kv_mask: [B, S_max] validity of each slot;
-    length: [B] populated slots per row.
+    length: [B] populated slots per row. Quantized (``k_scale`` given): k/v
+    hold int8 and k_scale/v_scale the f32 per-vector scales [L, B, S_max, KH,
+    1]; values dequantize at the attention read.
     """
 
     k: torch.Tensor
     v: torch.Tensor
     kv_mask: torch.Tensor
     length: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @staticmethod
     def create(
-        cfg: TextConfig, batch: int, max_len: int, *, dtype=torch.float32, device="cpu"
+        cfg: TextConfig, batch: int, max_len: int, *, dtype=torch.float32, device="cpu",
+        quantized: bool = False,
     ) -> "KVCache":
         L, KH, HD = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+        kv_dtype = torch.int8 if quantized else dtype
+
+        def zeros(last, dt):
+            return torch.zeros((L, batch, max_len, KH, last), dtype=dt, device=device)
+
         return KVCache(
-            k=torch.zeros((L, batch, max_len, KH, HD), dtype=dtype, device=device),
-            v=torch.zeros((L, batch, max_len, KH, HD), dtype=dtype, device=device),
+            k=zeros(HD, kv_dtype),
+            v=zeros(HD, kv_dtype),
             kv_mask=torch.zeros((batch, max_len), dtype=torch.bool, device=device),
             length=torch.zeros((batch,), dtype=torch.int64, device=device),
+            k_scale=zeros(1, torch.float32) if quantized else None,
+            v_scale=zeros(1, torch.float32) if quantized else None,
         )
 
 
@@ -238,20 +259,38 @@ def llama_forward(
                 x = _dense_layer(*args)
             continue
         q, k, v = _layer_qkv(lp, cfg, x, cos, sin)
-        # In-place token writes into this layer's slice of the cache.
-        cache.k[l][rows_ix, write_pos] = k.to(cache.k.dtype)
-        cache.v[l][rows_ix, write_pos] = v.to(cache.v.dtype)
+        k_sc = v_sc = None
+        if cache.quantized:
+            # In-place writes of the int8 values and their scales.
+            kq, ks = _kv_quantize(k)
+            vq, vs = _kv_quantize(v)
+            cache.k[l][rows_ix, write_pos] = kq
+            cache.v[l][rows_ix, write_pos] = vq
+            cache.k_scale[l][rows_ix, write_pos] = ks
+            cache.v_scale[l][rows_ix, write_pos] = vs
+            if T <= QUANT_FOLD_T_MAX:
+                # Decode / verify windows: the scales fold into the plain
+                # route's logits and probabilities.
+                k_at, v_at = cache.k[l], cache.v[l]
+                k_sc, v_sc = cache.k_scale[l][..., 0], cache.v_scale[l][..., 0]
+            else:
+                # A prefill: the flash route over the dequantized layer.
+                k_at = cache.k[l].to(x.dtype) * cache.k_scale[l].to(x.dtype)
+                v_at = cache.v[l].to(x.dtype) * cache.v_scale[l].to(x.dtype)
+        else:
+            # In-place token writes into this layer's slice of the cache.
+            cache.k[l][rows_ix, write_pos] = k.to(cache.k.dtype)
+            cache.v[l][rows_ix, write_pos] = v.to(cache.v.dtype)
+            k_at, v_at = cache.k[l], cache.v[l]
         attn_out = multi_head_attention(
-            q, cache.k[l], cache.v[l], causal=True,
-            q_positions=position_ids, kv_mask=new_kv_mask, impl=attn_impl,
+            q, k_at, v_at, causal=True, q_positions=position_ids, kv_mask=new_kv_mask,
+            impl=attn_impl, k_scale=k_sc, v_scale=v_sc,
         )
         x = _layer_out(lp, cfg, x, attn_out)
 
     new_cache = None
     if use_cache:
-        new_cache = KVCache(
-            k=cache.k, v=cache.v, kv_mask=new_kv_mask, length=write_offset + n_valid
-        )
+        new_cache = dataclasses.replace(cache, kv_mask=new_kv_mask, length=write_offset + n_valid)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps), new_cache
 
 

@@ -38,22 +38,33 @@ def xla_attention(
     q_positions: Optional[torch.Tensor] = None,
     kv_mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Reference attention in plain PyTorch (``attention.py:39``).
+    """Reference attention in plain PyTorch (``attention.py:39-115``).
 
     q: [B, T, H, D]; k, v: [B, S, KH, D]; q_positions: [B, T] absolute query
     positions (default: the last query aligned with the last key); kv_mask:
     [B, S] validity of each key slot. Logits are f32; masked logits take the
     finite NEG_INF, so a fully-masked row averages v uniformly, as in JAX.
+    ``k_scale``/``v_scale`` [B, S, KH] dequantize int8 k/v inside the math:
+    the logits are multiplied by k's scale after the dot, the probabilities
+    by v's before the PV product, so no dequantized copy is made.
     """
     b, t, h, d = q.shape
     s = k.shape[1]
     kh = k.shape[2]
     if scale is None:
         scale = d**-0.5
+
+    def per_head(x):  # [B, S, KH] -> [B, H, 1, S]
+        return x.float().repeat_interleave(h // kh, dim=2).permute(0, 2, 1)[:, :, None, :]
+
     k = repeat_kv(k.to(q.dtype), h // kh)
     v = repeat_kv(v.to(q.dtype), h // kh)
     logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    if k_scale is not None:
+        logits = logits * per_head(k_scale)
     mask = torch.ones((b, t, s), dtype=torch.bool, device=q.device)
     if causal:
         if q_positions is None:
@@ -66,6 +77,8 @@ def xla_attention(
         mask = mask & kv_mask[:, None, :].bool()
     logits = torch.where(mask[:, None], logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
+    if v_scale is not None:
+        probs = probs * per_head(v_scale)
     out = torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)
     return out.to(q.dtype)
 
@@ -79,13 +92,21 @@ def multi_head_attention(
     q_positions: Optional[torch.Tensor] = None,
     kv_mask: Optional[torch.Tensor] = None,
     impl: str = "auto",
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Dispatching attention; see :func:`xla_attention` for semantics.
 
-    The routing of ``attention.py:136-151``: ``auto`` takes the flash route,
-    except decode steps and short windows (T <= 16) and bidirectional
-    attention with head_dim < 128, which take the plain route;
-    ``impl="xla"`` names the plain route outright."""
+    The routing of ``attention.py:131-151``: scales (an int8 cache) force the
+    plain route; ``auto`` takes the flash route, except decode steps and
+    short windows (T <= 16) and bidirectional attention with head_dim < 128,
+    which take the plain route; ``impl="xla"`` names the plain route
+    outright."""
+    if k_scale is not None or v_scale is not None:
+        return xla_attention(
+            q, k, v, causal=causal, q_positions=q_positions, kv_mask=kv_mask,
+            k_scale=k_scale, v_scale=v_scale,
+        )
     if impl == "auto" and (q.shape[1] <= 16 or (not causal and q.shape[-1] < 128)):
         impl = "xla"
     if impl == "auto":

@@ -1,7 +1,8 @@
-"""Concurrent HTTP model worker over the paged engine (port of
+"""Concurrent HTTP model worker over a serving engine (port of
 ``vcoder_tpu/serve/engine_server.py``).
 
-Every client is multiplexed onto ONE ``PagedServingEngine``: a background
+Every client is multiplexed onto ONE engine, the ``PagedServingEngine`` or,
+with ``engine="slot"``, the slot engine ``ServingEngine``: a background
 thread owns the engine and drives ``engine.step()``, each step decodes all
 active streams at once, and per-request token queues fan the events back
 out. Only the loop thread touches the engine; handlers talk to it through
@@ -23,8 +24,8 @@ engine request, and so does a client that goes away, so no slot is stranded.
     python -m vcoder_tpu_torch.serve.engine_server --model-path <ckpt> \
         --port 21002 --max-batch 8 --page-size 128 [--kv-quant]
         [--speculative 4] [--prefix-cache] [--chunked-prefill 512]
-
-The slot engine (``engine="slot"``) is not ported; it raises.
+    python -m vcoder_tpu_torch.serve.engine_server --model-path <ckpt> \
+        --engine slot --max-len 2048 [--kv-quant] [--sync-every 4]
 """
 
 from __future__ import annotations
@@ -79,24 +80,24 @@ class EngineWorker:
         engine: str = "paged",
         **engine_kw,
     ):
-        if engine == "slot":
-            raise NotImplementedError(
-                "the slot engine (serve/engine.py's ServingEngine) is not ported; "
-                "use engine='paged'"
-            )
-        if engine != "paged":
+        if engine not in ("paged", "slot"):
             raise ValueError(f"unknown engine {engine!r}")
         self.chat = Chat(model_path, model_base, model_name=model_name, load_8bit=load_8bit,
                          load_4bit=load_4bit, device=device, tokenizer=tokenizer)
-        from vcoder_tpu_torch.serve.paged_engine import PagedServingEngine
-
         model = self.chat.model
-        self.engine = PagedServingEngine(model.config, model.params, device=self.chat.device,
-                                         **engine_kw)
+        if engine == "paged":
+            from vcoder_tpu_torch.serve.paged_engine import PagedServingEngine as engine_cls
+        else:
+            from vcoder_tpu_torch.serve.engine import ServingEngine as engine_cls
+
+            engine_kw.pop("page_size", None)
+        self.engine = engine_cls(model.config, model.params, device=self.chat.device,
+                                 **engine_kw)
         self.model_name = self.chat.model_name
         self.eos_id = model.config.text.eos_token_id
-        # Run every group-chunk shape once before traffic arrives.
-        self.engine.warmup_chunks()
+        if hasattr(self.engine, "warmup_chunks"):
+            # Run every group-chunk shape once before traffic arrives.
+            self.engine.warmup_chunks()
         self._start_loop()
 
     @classmethod

@@ -24,6 +24,7 @@ Verify windows of at most 16 columns take the plain attention route
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -168,10 +169,11 @@ def accept_window(
 def trim_cache(cache: KVCache, new_len: torch.Tensor) -> KVCache:
     """Trim rows to the accepted length after a verify dispatch: rejected
     slots stay as garbage, masked out (``kv_mask`` is exactly ``pos <
-    length``) and overwritten by the next dispatch."""
+    length``) and overwritten by the next dispatch. A quantized cache's scale
+    tensors ride along."""
     S = cache.k.shape[2]
     pos_s = torch.arange(S, device=new_len.device)[None, :]
-    return KVCache(k=cache.k, v=cache.v, kv_mask=pos_s < new_len[:, None], length=new_len)
+    return dataclasses.replace(cache, kv_mask=pos_s < new_len[:, None], length=new_len)
 
 
 def _spec_step(params, cfg, tok, cache, done, history, hist_len, cursor, out_buf, *,
