@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``vcoder_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py                  # every phase (1-4, 6, 7, 8, 9, 12, 5, 11a, 10,
-                                           # 11, 13)
+                                           # 11, 13, 14)
     python3 chip_smoke.py --profile        # also torch.profiler: two B=1 requests,
                                            # the paged engine's decode step at B=8,
                                            # in bf16, with int4/int8 weights and with
@@ -190,8 +190,38 @@ Phases, in order; any failure exits non-zero:
    seg-projector and ``vcoder_lm_emb`` gradient norms on every step, per
    step 32 K6 calls, 64 flash launches and 23 ViT blocks and no other
    kernel, and ``adapters.safetensors``, ``checkpoint-4`` and ``final/``
-   (``model_type`` ``vcoder_ds_llava``) written. Logs step ms, valid
+   (``model_type`` ``vcoder_ds_llava``) written (the weight files through
+   pipes, below). Logs step ms, valid
    tokens/s, peak memory and the files' decode routes.
+14. The first full-LLM stage, after phase 13, with the Adam moments in
+   pinned host memory, from a plain-LLaVA ``llava-v1.5-7b`` directory
+   beside phase 10's (``write_llava_dir``: a llava config and phase 10's
+   weights file hard-linked, of which it reads the tower, ``mm_projector``
+   and ``lm``): ``train.train``'s ``main``
+   (``scripts/v1_5/train_torch/finetune.sh``'s flow, ``--stage full
+   --offload-opt-state``, lr 2e-5) trains 4 steps of B=4 at
+   ``--model-max-length 2048`` in this process over a LLaVA-format JSON of
+   the repo's photos (``make_llava_json``: six-turn conversations that fill
+   the 2048 bucket). Gates: 4 finite losses; non-zero ``lm/`` and
+   ``mm_projector`` gradient norms every step; per step 64 K1, 32 K6 and 23
+   ViT blocks and no other kernel; every shaped moment in pinned host
+   memory and ``count`` on the card; the step checkpoint (every parameter
+   and moment), ``adapters.safetensors`` and ``final/`` (``model_type``
+   ``llava``) written. Then an A/B through ``Trainer`` on the trained
+   weights: 2 steps of B=1 with the moments resident, then from the same
+   trainable leaves 2 steps offloaded; gated on bit-equal leaves and state
+   (``bits_digest``), leaves that moved, the same launch gates, and an
+   offloaded peak of allocated memory at least ``MOMENT_CUT`` x the
+   moments' bytes below the resident one. Logs step ms, valid tokens/s,
+   peak device memory (offloaded and resident), host RSS and pinned bytes,
+   and each offloaded step's H2D, D2H and update times on the copy
+   streams' events with their overlap.
+
+The card machine's disk takes ~45 GiB of writes a run (deleted files
+count), and phase 10's directory takes 13.5 of them: phases 13 and 14 write
+their weight files (step checkpoint, adapters, ``final/model.safetensors``)
+through named pipes into reader threads that check each header and byte
+count (``piped_weights``); their small files are written as files.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -207,6 +237,7 @@ import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -3312,7 +3343,7 @@ def phase_surfaces(cfg, held: list, tok, reqs, then=None) -> dict:
     serving surfaces from one checkpoint directory: the Chat-based HTTP
     worker, the engine worker at ``main()``'s defaults under 4 concurrent
     requests, and the CLI as a subprocess. ``then(dir)`` runs last, in the
-    checkpoint directory (phase 11). Returns the launch totals."""
+    checkpoint directory (phases 11, 13 and 14). Returns the launch totals."""
     import base64
     import gc
     import shutil
@@ -3998,6 +4029,113 @@ def phase_slot_engine(cfg, params, model, preps, device="cuda", quantized=True) 
     return totals
 
 
+# The card machine's disk takes ~45 GiB of writes a run, deleted files
+# included, and phase 10's checkpoint directory already writes 13.5 GiB: the
+# training stages' weight files (a 7B step checkpoint is 14-41 GB) go
+# through named pipes into reader threads that check what arrives.
+PIPED_WEIGHTS = ("checkpoint-{steps}/state.safetensors.tmp", "adapters.safetensors",
+                 "final/model.safetensors")
+
+
+@contextlib.contextmanager
+def piped_weights(out: str, steps: int):
+    """A named pipe at each of a stage's weight-file paths under ``out``
+    (``PIPED_WEIGHTS``; the stage writes and renames them as it would files),
+    each drained by a thread that keeps the safetensors header and counts
+    the bytes. The pipes are made when a ``Trainer``'s ``maybe_resume``
+    returns (made earlier, the step checkpoint's directory would look like
+    one to resume from). Yields {name: {"header", "header_len", "bytes"}},
+    filled as each writer closes; on exit a pipe no writer opened is closed
+    empty."""
+    import fcntl
+    import threading
+
+    from vcoder_tpu_torch.train import trainer as trainer_mod
+
+    names = [n.format(steps=steps) for n in PIPED_WEIGHTS]
+    results, threads = {}, {}
+
+    def drain(name, path):
+        with open(path, "rb", buffering=0) as f:
+            try:
+                fcntl.fcntl(f.fileno(), fcntl.F_SETPIPE_SZ, 1 << 20)
+            except OSError:
+                pass
+            buf = bytearray()
+            n = 0
+            while True:
+                b = f.read(1 << 20)
+                if not b:
+                    break
+                n += len(b)
+                if len(buf) < (64 << 20):
+                    buf += b
+        header, k = None, 0
+        if len(buf) >= 8:
+            (k,) = struct.unpack("<Q", bytes(buf[:8]))
+            if len(buf) >= 8 + k:
+                try:
+                    header = json.loads(bytes(buf[8:8 + k]))
+                except ValueError:
+                    pass
+        results[name] = dict(header=header, header_len=k, bytes=n)
+
+    def make_pipes():
+        for name in names:
+            path = os.path.join(out, name)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            os.mkfifo(path)
+            threads[name] = threading.Thread(target=drain, args=(name, path), daemon=True)
+            threads[name].start()
+
+    resume = trainer_mod.Trainer.maybe_resume
+
+    def resume_then_pipe(self):
+        resumed = resume(self)
+        if not threads:
+            make_pipes()
+        return resumed
+
+    trainer_mod.Trainer.maybe_resume = resume_then_pipe
+    try:
+        yield results
+    finally:
+        trainer_mod.Trainer.maybe_resume = resume
+        for name, t in threads.items():
+            while t.is_alive():
+                for path in (os.path.join(out, name), os.path.join(out, name[:-4])):
+                    try:
+                        os.close(os.open(path, os.O_WRONLY | os.O_NONBLOCK))
+                    except OSError:
+                        pass
+                t.join(timeout=0.1)
+
+
+def piped_gate(label: str, got: dict, keys: dict) -> dict:
+    """Each piped file's header names ``keys[name]`` (a set of tensor names
+    it must hold) and the bytes received are the header's and its data's.
+    Returns {name: GiB}."""
+    bad, sizes = [], {}
+    for name, want in keys.items():
+        r = got.get(name) or {}
+        h = r.get("header")
+        if h is None:
+            bad.append(f"{name}: no safetensors header arrived")
+            continue
+        end = max((m["data_offsets"][1] for k, m in h.items() if k != "__metadata__"),
+                  default=0)
+        if r["bytes"] != 8 + r["header_len"] + end:
+            bad.append(f"{name}: {r['bytes']} bytes, the header says "
+                       f"{8 + r['header_len'] + end}")
+        if not want <= set(h):
+            bad.append(f"{name}: {len(want - set(h))} tensors missing, e.g. "
+                       f"{sorted(want - set(h))[:2]}")
+        sizes[name] = round(r["bytes"] / 2**30, 2)
+    if bad:
+        raise SystemExit(f"{label}: " + "; ".join(bad))
+    return sizes
+
+
 # Phase 13: a training stage from files. COST's training layout
 # (tests/test_train_pipeline.py::_make_cost_tree's) on the repo's pictures.
 TRAIN_BUCKETS = ("train", "unlabeled", "test")
@@ -4035,6 +4173,72 @@ def make_train_tree(root: str) -> None:
         copy(COST_PHOTOS, os.path.join(root, "coco", f"{bucket}2017"))
 
 
+@contextlib.contextmanager
+def timed_train_steps(records: list, device: str = "cuda"):
+    """Time every step of the ``Trainer``s built inside the block: each step
+    appends ``ms`` (CUDA events around the step on the card, the host clock
+    on the CPU), the batch's ``T`` and valid ``tokens``, the per-leaf
+    gradient ``norms``, and for an offloaded step its stager's ``copies``
+    (``StateStager.pop_stats``: H2D, D2H and update ms, the pass's wall)."""
+    import torch
+
+    from vcoder_tpu_torch.train import trainer as trainer_mod
+
+    make_step = trainer_mod.make_train_step
+
+    def timed_make(*a, **kw):
+        inner = make_step(*a, **kw)
+
+        def timed(p, state, batch):
+            t0 = time.perf_counter()
+            if device == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            res = inner(p, state, batch)
+            if device == "cuda":
+                end.record()
+                torch.cuda.synchronize()
+                ms = start.elapsed_time(end)
+            else:
+                ms = (time.perf_counter() - t0) * 1e3
+            rec = dict(ms=ms, T=int(batch["safe_ids"].shape[1]),
+                       tokens=int(batch["attn_mask"].sum()),
+                       norms={k: float(v) for k, v in res[2]["leaf_grad_norms"].items()})
+            if inner.stager is not None:
+                rec["copies"] = inner.stager.pop_stats()
+            records.append(rec)
+            return res
+
+        timed.stager = inner.stager
+        return timed
+
+    trainer_mod.make_train_step = timed_make
+    try:
+        yield records
+    finally:
+        trainer_mod.make_train_step = make_step
+
+
+def piped_train_keys(trainer) -> dict:
+    """The tensors each piped weight file of ``trainer``'s stage must hold:
+    every parameter, state entry and ``step`` in the step checkpoint, the
+    trainable leaves in the adapters, the embedding and every layer's query
+    weight in ``final/``."""
+    from vcoder_tpu_torch.train.step import trainable_leaves
+    from vcoder_tpu_torch.tree import named_leaves
+
+    n_layers = trainer.cfg.text.num_layers
+    return {
+        f"checkpoint-{trainer.step}/state.safetensors.tmp":
+            {f"params/{p}" for p, _ in named_leaves(trainer.params)}
+            | {f"opt/{k}" for k in trainer.opt_state} | {"step"},
+        "adapters.safetensors": set(trainable_leaves(trainer.params, trainer.args.stage)),
+        "final/model.safetensors": {"model.embed_tokens.weight"}
+            | {f"model.layers.{i}.self_attn.q_proj.weight" for i in range(n_layers)},
+    }
+
+
 def phase_train_stage(ckpt: str, device: str = "cuda") -> dict:
     """Phase 13: the VCoder-DS training stage as
     ``scripts/v1_5/train_torch/vcoder_ds_train.sh`` runs it, from the
@@ -4046,14 +4250,14 @@ def phase_train_stage(ckpt: str, device: str = "cuda") -> dict:
     ``metrics.jsonl``; non-zero seg-projector and ``vcoder_lm_emb``
     gradient norms on every step; per step 32 K6 calls, 64 K1 launches and
     23 ViT blocks, and no other kernel; ``adapters.safetensors``, the step
-    checkpoint and ``final/`` written, ``final/config.json`` naming
+    checkpoint and ``final/`` written (the weight files through
+    :func:`piped_weights`), ``final/config.json`` naming
     ``vcoder_ds_llava``. Returns the launch counts."""
     import gc
 
     import torch
 
     from vcoder_tpu_torch import native_io
-    from vcoder_tpu_torch.train import trainer as trainer_mod
     from vcoder_tpu_torch.train import vcoder_ds_train
 
     t_phase = time.perf_counter()
@@ -4073,48 +4277,20 @@ def phase_train_stage(ckpt: str, device: str = "cuda") -> dict:
                 "--per-device-train-batch-size", "4", "--model-max-length", "2048",
                 "--max-steps", str(TRAIN_STEPS), "--device", device]
         records = []
-        make_step = trainer_mod.make_train_step
-
-        def timed_make(*a, **kw):
-            inner = make_step(*a, **kw)
-
-            def timed(p, state, batch):
-                t0 = time.perf_counter()
-                if device == "cuda":
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                res = inner(p, state, batch)
-                if device == "cuda":
-                    end.record()
-                    torch.cuda.synchronize()
-                    ms = start.elapsed_time(end)
-                else:
-                    ms = (time.perf_counter() - t0) * 1e3
-                records.append(dict(ms=ms, T=int(batch["safe_ids"].shape[1]),
-                                    tokens=int(batch["attn_mask"].sum()),
-                                    norms={k: float(v) for k, v
-                                           in res[2]["leaf_grad_norms"].items()}))
-                return res
-
-            return timed
-
         gc.collect()
         if device == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         _reset_counters()
-        trainer_mod.make_train_step = timed_make
         t0 = time.perf_counter()
-        try:
+        with piped_weights(out, TRAIN_STEPS) as piped, timed_train_steps(records, device):
             trainer = vcoder_ds_train.main(argv)
-        finally:
-            trainer_mod.make_train_step = make_step
         _sync(device)
         wall = time.perf_counter() - t0
         counts = _counters()
         peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
         routes, n_entries = dict(trainer.dataset.routes), len(trainer.dataset)
+        piped_keys = piped_train_keys(trainer)
         del trainer
         gc.collect()
         if device == "cuda":
@@ -4123,12 +4299,10 @@ def phase_train_stage(ckpt: str, device: str = "cuda") -> dict:
             metrics = [json.loads(line) for line in f]
         with open(os.path.join(out, "final", "config.json")) as f:
             final_type = json.load(f).get("model_type")
-        files = dict(adapters=os.path.isfile(os.path.join(out, "adapters.safetensors")),
-                     checkpoint=os.path.isfile(os.path.join(out, f"checkpoint-{TRAIN_STEPS}",
-                                                            "state.safetensors")),
-                     final=os.path.isfile(os.path.join(out, "final", "model.safetensors")))
+        final_files = sorted(os.listdir(os.path.join(out, "final")))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    sizes = piped_gate("train stage", piped, piped_keys)
     for m, r in zip(metrics, records):
         seg = max(v for k, v in r["norms"].items() if k.startswith("seg_projector/"))
         log(f"  train stage step {m['step']}: T={r['T']} B=4, {r['tokens']} tokens, "
@@ -4146,8 +4320,8 @@ def phase_train_stage(ckpt: str, device: str = "cuda") -> dict:
                 k8=0, paged=0, int4=0, int8=0, int8_scaled=0)
     if counts != want:
         bad.append(f"launches {counts} != {want}")
-    if not all(files.values()) or final_type != "vcoder_ds_llava":
-        bad.append(f"outputs {files}, final/config.json model_type {final_type!r}")
+    if final_type != "vcoder_ds_llava" or "model.safetensors" not in final_files:
+        bad.append(f"final/ holds {final_files}, its config.json model_type {final_type!r}")
     if bad:
         raise SystemExit("train stage: " + "; ".join(bad))
     ms_p50 = float(np.median([r["ms"] for r in records[1:]]))
@@ -4157,9 +4331,325 @@ def phase_train_stage(ckpt: str, device: str = "cuda") -> dict:
         f"{ms_p50:.1f} ms, {tok_s:.0f} valid tokens/s; peak {peak:.2f} GiB allocated; files "
         f"decoded {json.dumps(routes)} (native: the library's {native_io.route()} route) by 8 "
         f"loader threads; --help subprocess {help_s:.1f} s; launches {json.dumps(counts)}; "
-        f"final/config.json model_type {final_type}; phase {time.perf_counter() - t_phase:.1f} s")
+        f"weights written through pipes (GiB) {json.dumps(sizes)}; final/config.json "
+        f"model_type {final_type}; phase {time.perf_counter() - t_phase:.1f} s")
     return dict(flash=counts["flash"], flash_bwd=counts["flash_bwd"], vit=counts["vit"],
                 step_ms_p50=ms_p50, tokens_s=tok_s, peak_gib=peak)
+
+
+# Phase 14: the first full-LLM stage (scripts/v1_5/train_torch/finetune.sh's
+# flow) over a plain-LLaVA directory, with the Adam moments in pinned host
+# memory (--offload-opt-state).
+LLAVA_DIR = "llava-v1.5-7b"
+FULL_STEPS = 4
+FULL_BATCH = 4  # the largest of 4, 2, 1 whose offloaded step fits the card
+AB_STEPS = 2
+AB_BATCH = 1  # the resident step fits at this batch
+AB_LR = 1e-3  # large enough that every bf16 leaf moves on the second step
+LLAVA_SAMPLES = 24
+LLAVA_TURNS = 6
+MOMENT_CUT = 0.8  # the offloaded peak lies this many moments' bytes below the resident one
+
+
+def write_llava_dir(d: str, ds_dir: str) -> None:
+    """Phase 14's plain-LLaVA base beside the VCoder-DS directory ``ds_dir``:
+    its config with the llava variant's flags, its tokenizer files, and its
+    weights file hard-linked (no byte written). The llava config reads the
+    tower, ``mm_projector`` and ``lm`` from it (``import_vcoder`` takes no
+    seg, depth or ``vcoder_lm_emb`` tensor for a llava model)."""
+    from vcoder_tpu_torch.config import VCoderConfig, _variant_flags
+
+    os.makedirs(d, exist_ok=True)
+    for f in os.listdir(ds_dir):
+        if f == "model.safetensors":
+            os.link(os.path.join(ds_dir, f), os.path.join(d, f))
+        elif f == "config.json":
+            with open(os.path.join(ds_dir, f)) as fh:
+                cfg = VCoderConfig.from_hf_config(json.load(fh))
+            with open(os.path.join(d, f), "w") as fh:
+                json.dump(dataclasses.replace(cfg, model_type="llava", **_variant_flags("llava"))
+                          .to_hf_config(), fh, indent=2)
+        elif os.path.isfile(os.path.join(ds_dir, f)):
+            shutil.copyfile(os.path.join(ds_dir, f), os.path.join(d, f))
+
+
+def make_llava_json(path: str, n: int = LLAVA_SAMPLES, turns: int = LLAVA_TURNS,
+                    seed: int = 0) -> None:
+    """LLaVA-format samples (``image`` + ``conversations``) over the repo's
+    photos, read as data (``image`` relative to the repo's root): each a
+    conversation of ``turns`` turns, questions of 12 words and answers
+    of 150-199 drawn from PROMPT's words (every one in the tokenizer), so a
+    row's ~1,200 text tokens and 576 image tokens fill the 2048 bucket."""
+    rng = np.random.RandomState(seed)
+    words = sorted(set(re.findall(r"[a-zA-Z']+", PROMPT)))
+    entries = []
+    for i in range(n):
+        conv = []
+        for t in range(turns):
+            q = " ".join(rng.choice(words, 12)) + "?"
+            a = " ".join(rng.choice(words, rng.randint(150, 200))) + "."
+            conv += [{"from": "human", "value": ("<image>\n" if t == 0 else "") + q},
+                     {"from": "gpt", "value": a}]
+        entries.append({"id": f"full-{i}", "image": COST_PHOTOS[i % len(COST_PHOTOS)],
+                        "conversations": conv})
+    with open(path, "w") as f:
+        json.dump(entries, f)
+
+
+def _rss_gib() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def bits_digest(tensors: dict, device: str = "cuda") -> str:
+    """A digest of every bit of ``tensors`` (by name), computed on
+    ``device`` a chunk at a time (a host tensor's chunk is copied there
+    first): per tensor, the sum of its elements' bit patterns and their
+    sum weighted by position, in wrapping int64."""
+    import torch
+
+    words = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    h = hashlib.sha1()
+    for name in sorted(tensors):
+        flat = tensors[name].detach().reshape(-1)
+        flat = flat.view(words[flat.element_size()])
+        acc = torch.zeros(2, dtype=torch.int64, device=device)
+        step = 1 << 26
+        for a in range(0, flat.numel(), step):
+            c = flat[a:a + step].to(device).to(torch.int64)
+            w = torch.arange(a, a + c.numel(), device=device) % 65521 + 1
+            acc[0] += c.sum()
+            acc[1] += (c * w).sum()
+        h.update(f"{name}:{acc.tolist()}:{tuple(flat.shape)};".encode())
+    return h.hexdigest()[:16]
+
+
+def _train_gate(label: str, records: list, counts: dict, steps: int) -> None:
+    """Phase 14's per-step gates: finite losses, non-zero gradients on the
+    ``lm/`` leaves and on ``mm_projector``, and per step 64 K1, 32 K6 and 23
+    ViT blocks and no other kernel."""
+    bad = []
+    if len(records) != steps:
+        bad.append(f"{len(records)} steps, want {steps}")
+    for i, r in enumerate(records):
+        lm = max(v for k, v in r["norms"].items() if k.startswith("lm/"))
+        mm = max(v for k, v in r["norms"].items() if k.startswith("mm_projector/"))
+        if not (lm > 0 and mm > 0 and np.isfinite(list(r["norms"].values())).all()):
+            bad.append(f"step {i + 1}: lm/ grad norm {lm}, mm_projector {mm}")
+    want = dict(flash=64 * steps, flash_bwd=32 * steps, vit=23 * steps, mlp=0, k8=0, paged=0,
+                int4=0, int8=0, int8_scaled=0)
+    if counts != want:
+        bad.append(f"launches {counts} != {want}")
+    if bad:
+        raise SystemExit(f"full stage {label}: " + "; ".join(bad))
+
+
+def _copies_line(r: dict) -> str:
+    c = r.get("copies")
+    if not c or not c["wall"]:
+        return "copies not measured"
+    serial = c["h2d"] + c["d2h"] + c["update"]
+    return (f"update pass {c['wall']:.1f} ms over {c['chunks']} chunks: H2D {c['h2d']:.1f}, "
+            f"D2H {c['d2h']:.1f}, update {c['update']:.1f} ms, {serial - c['wall']:.1f} ms "
+            f"of the {serial:.1f} overlapped")
+
+
+def full_stage_ab(trainer, device: str, tmp: str) -> dict:
+    """Phase 14's A/B: from the stage's trained weights, ``AB_STEPS`` steps
+    of B=``AB_BATCH`` through ``Trainer`` with the moments resident, then
+    from the same starting trainable leaves (restored from a host copy) the
+    same steps offloaded, over the same dataset and sampler. Gates: the
+    trainable leaves and the whole optimizer state bit-equal (a digest of
+    every bit), the leaves moved, and the offloaded peak of allocated device
+    memory at least ``MOMENT_CUT`` x the moments' bytes below the resident
+    one."""
+    import gc
+
+    import torch
+
+    from vcoder_tpu_torch.train.step import trainable_leaves
+    from vcoder_tpu_torch.train.trainer import TrainArgs, Trainer
+
+    cfg, params, dataset, mesh = trainer.cfg, trainer.params, trainer.dataset, trainer.mesh
+    # The stage's state goes: its pinned blocks return to the host
+    # allocator's cache, where the offloaded run takes them again.
+    trainer.opt_state = trainer.step_fn = None
+    gc.collect()
+    leaves = trainable_leaves(params, "full")
+    start = {p: t.detach().to("cpu", copy=True) for p, t in leaves.items()}
+    start_digest = bits_digest(leaves, device)
+    runs = {}
+    for mode in ("resident", "offloaded"):
+        with torch.no_grad():
+            for p, t in leaves.items():
+                t.copy_(start[p])
+        args = TrainArgs(output_dir=os.path.join(tmp, mode), stage="full", learning_rate=AB_LR,
+                         per_device_train_batch_size=AB_BATCH, save_steps=10**9,
+                         offload_opt_state=mode == "offloaded")
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        records = []
+        with timed_train_steps(records, device):
+            tr = Trainer(cfg, params, dataset, args, mesh=mesh, device=device)
+            hist = tr.train(max_steps=AB_STEPS)
+        _sync(device)
+        counts = _counters()
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else float("nan")
+        _train_gate(f"A/B {mode}", records, counts, AB_STEPS)
+        state = tr.opt_state
+        moments = sum(t.numel() * t.element_size() for k, t in state.items()
+                      if k.startswith(("mu/", "nu/")))
+        runs[mode] = dict(peak=peak, records=records, counts=counts, moments=moments,
+                          losses=[h["loss"] for h in hist],
+                          params=bits_digest(trainable_leaves(tr.params, "full"), device),
+                          state=bits_digest(state, device),
+                          where=sorted({f"{t.device.type}{'/pinned' if t.is_pinned() else ''}"
+                                        for t in state.values() if t.ndim}))
+        del tr, state
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    res, off = runs["resident"], runs["offloaded"]
+    for mode, r in runs.items():
+        log(f"  A/B {mode} (B={AB_BATCH}, lr {AB_LR}): steps "
+            + "; ".join(f"{x['ms']:.1f} ms T={x['T']} {x['tokens']} tokens" for x in r["records"])
+            + f"; losses {', '.join(f'{v:.4f}' for v in r['losses'])}; peak "
+            f"{r['peak'] / 2**30:.2f} GiB allocated; state in {r['where']}; digests params "
+            f"{r['params']} state {r['state']}"
+            + (f"; {_copies_line(r['records'][-1])}" if mode == "offloaded" else ""))
+    bad = []
+    if (res["params"], res["state"]) != (off["params"], off["state"]):
+        bad.append("the offloaded step's leaves or state differ from the resident step's")
+    if res["params"] == start_digest:
+        bad.append("no trainable leaf moved")
+    if device == "cuda":
+        cut = res["peak"] - off["peak"]
+        if off["where"] != ["cpu/pinned"] or cut < MOMENT_CUT * off["moments"]:
+            bad.append(f"offloaded state in {off['where']}, peak {cut / 2**30:.2f} GiB below the "
+                       f"resident one, want >= {MOMENT_CUT} x {off['moments'] / 2**30:.2f} GiB")
+    if bad:
+        raise SystemExit("full stage A/B: " + "; ".join(bad))
+    ms = {m: r["records"][-1]["ms"] for m, r in runs.items()}
+    log(f"  A/B: leaves and state bit-equal (digests {off['params']}, {off['state']}); peak "
+        f"{off['peak'] / 2**30:.2f} GiB offloaded against {res['peak'] / 2**30:.2f} resident "
+        f"({(res['peak'] - off['peak']) / 2**30:.2f} GiB less; moments "
+        f"{off['moments'] / 2**30:.2f} GiB); step {AB_STEPS} {ms['offloaded']:.1f} ms offloaded "
+        f"against {ms['resident']:.1f} resident (+{ms['offloaded'] - ms['resident']:.1f} ms)")
+    return dict(counts={k: res["counts"][k] + off["counts"][k] for k in res["counts"]},
+                peak_resident=res["peak"], peak_offloaded=off["peak"], ms=ms)
+
+
+def phase_full_stage(ckpt: str, device: str = "cuda", turns: int = LLAVA_TURNS) -> dict:
+    """Phase 14: the LLaVA full finetune as
+    ``scripts/v1_5/train_torch/finetune.sh`` runs it, with
+    ``--offload-opt-state``, from a plain-LLaVA directory written beside the
+    VCoder-DS directory ``ckpt`` (:func:`write_llava_dir`) over a
+    LLaVA-format JSON of the repo's photos (:func:`make_llava_json`, of
+    ``turns`` turns): ``train.train``'s ``main`` in this process (so the
+    launch counters can be read), B=``FULL_BATCH``, ``--model-max-length
+    2048``, ``--max-steps 4``, lr 2e-5, its weight files through pipes
+    (:func:`piped_weights`). Gates: 4 finite losses; non-zero ``lm/`` and
+    ``mm_projector`` gradient norms every step; per step 64 K1, 32 K6 and 23
+    ViT blocks and no other kernel; every shaped moment in host memory
+    (pinned on a card) and ``count`` on the device; the step checkpoint
+    (every parameter and moment), ``adapters.safetensors`` and ``final/``
+    (``model_type`` ``llava``) written. Then :func:`full_stage_ab`. Logs step
+    ms, valid tokens/s, peak device memory, host RSS and pinned bytes, and
+    each step's copy times."""
+    import gc
+
+    import torch
+
+    from vcoder_tpu_torch.train import train as train_mod
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="vcoder_full_stage_")
+    try:
+        base = os.path.join(tmp, LLAVA_DIR)
+        write_llava_dir(base, ckpt)
+        data, out = os.path.join(tmp, "llava.json"), os.path.join(tmp, "out")
+        make_llava_json(data, turns=turns)
+        argv = ["--stage", "full", "--model-path", base, "--data-path", data,
+                "--image-folder", here, "--output-dir", out, "--learning-rate", "2e-5",
+                "--num-train-epochs", "1", "--per-device-train-batch-size", str(FULL_BATCH),
+                "--model-max-length", "2048", "--max-steps", str(FULL_STEPS),
+                "--offload-opt-state", "--device", device]
+        records = []
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        t0 = time.perf_counter()
+        with piped_weights(out, FULL_STEPS) as piped, timed_train_steps(records, device):
+            trainer = train_mod.main(argv)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        counts = _counters()
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else float("nan")
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        with open(os.path.join(out, "final", "config.json")) as f:
+            final_type = json.load(f).get("model_type")
+        state = trainer.opt_state
+        host = {k: t for k, t in state.items() if t.ndim}
+        pinned = sum(t.numel() * t.element_size() for t in host.values())
+        placed = (all(t.device.type == "cpu" and (t.is_pinned() or device != "cuda")
+                      for t in host.values())
+                  and state["count"].device.type == torch.device(device).type
+                  and set(host) == {k for k in state if k != "count"})
+        rss = _rss_gib()
+        host_stats = ({k: v for k, v in torch.cuda.host_memory_stats().items()
+                       if "bytes" in k and ".current" in k}
+                      if device == "cuda" and hasattr(torch.cuda, "host_memory_stats") else {})
+        sizes = piped_gate("full stage", piped, piped_train_keys(trainer))
+        for m, r in zip(metrics, records):
+            lm = max(v for k, v in r["norms"].items() if k.startswith("lm/"))
+            mm = max(v for k, v in r["norms"].items() if k.startswith("mm_projector/"))
+            log(f"  full stage step {m['step']}: T={r['T']} B={FULL_BATCH}, {r['tokens']} "
+                f"tokens, {r['ms']:.1f} ms, {r['tokens'] / r['ms'] * 1e3:.0f} tokens/s, loss "
+                f"{m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, lm/ grad norm (largest "
+                f"leaf) {lm:.4g}, mm_projector {mm:.4g}; {_copies_line(r)}")
+        bad = []
+        if len(metrics) != FULL_STEPS or not all(
+                np.isfinite([m["loss"], m["grad_norm"]]).all() for m in metrics):
+            bad.append(f"{len(metrics)} metrics lines or a non-finite loss")
+        if not placed:
+            bad.append("a shaped moment off the (pinned) host, or count off the device")
+        if final_type != "llava":
+            bad.append(f"final/config.json model_type {final_type!r}")
+        if bad:
+            raise SystemExit("full stage: " + "; ".join(bad))
+        _train_gate("CLI", records, counts, FULL_STEPS)
+        ms_p50 = float(np.median([r["ms"] for r in records[1:]]))
+        tok_s = float(np.median([r["tokens"] / r["ms"] * 1e3 for r in records[1:]]))
+        n_train = sum(t.numel() for k, t in host.items() if k.startswith("mu/"))
+        log(f"  full stage: {n_train / 1e9:.4g} B trainable parameters, moments "
+            f"{pinned / 2**30:.2f} GiB in {'pinned ' if device == 'cuda' else ''}host memory; "
+            f"train.main {wall:.1f} s (load, {FULL_STEPS} steps, checkpoint, adapters, final/; "
+            f"written through pipes, GiB {json.dumps(sizes)}); steps 2-{FULL_STEPS} p50 "
+            f"{ms_p50:.1f} ms, {tok_s:.0f} valid tokens/s; peak {peak / 2**30:.2f} GiB "
+            f"allocated; host RSS {rss:.2f} GiB, host allocator {json.dumps(host_stats)}; "
+            f"launches {json.dumps(counts)}; final/config.json model_type {final_type}")
+        del state, host
+        ab = full_stage_ab(trainer, device, tmp)
+        del trainer
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 14 {time.perf_counter() - t_phase:.1f} s")
+    total = {k: counts[k] + ab["counts"][k] for k in counts}
+    return dict(flash=total["flash"], flash_bwd=total["flash_bwd"], vit=total["vit"],
+                step_ms_p50=ms_p50, tokens_s=tok_s, peak=peak, pinned=pinned, **ab)
 
 
 def main() -> int:
@@ -4242,19 +4732,22 @@ def main() -> int:
     prep = cost_eval_prepare(cfg, held, tok10)
     lap("cost_prepare")
     log("surfaces (phase 10): VCoder-DS-7B bf16, the phase-4 weights and requests")
-    p11, p13 = {}, {}
+    p11, p13, p14 = {}, {}, {}
 
     def in_checkpoint_dir(d):
         p11.update(phase_cost_eval(d, prep, tok10))
         log("training stage from files (phase 13): vcoder_ds_train over a COST tree, B=4")
         p13.update(phase_train_stage(d))
+        log(f"full-LLM stage (phase 14): train.train --stage full --offload-opt-state over "
+            f"{LLAVA_DIR}, B={FULL_BATCH}")
+        p14.update(phase_full_stage(d))
 
     p10 = phase_surfaces(cfg, held, tok10, main_counts["requests"], then=in_checkpoint_dir)
-    lap("surfaces_cost_eval_train_stage")
-    launches["flash_fwd"] += p10["flash"] + p11["flash"] + p13["flash"]
-    launches["flash_fwd_train"] += p13["flash"]
-    launches["flash_bwd"] += p13["flash_bwd"]
-    launches["vit_block"] += p10["vit"] + p11["vit"] + p13["vit"]
+    lap("surfaces_cost_eval_train_stages")
+    launches["flash_fwd"] += p10["flash"] + p11["flash"] + p13["flash"] + p14["flash"]
+    launches["flash_fwd_train"] += p13["flash"] + p14["flash"]
+    launches["flash_bwd"] += p13["flash_bwd"] + p14["flash_bwd"]
+    launches["vit_block"] += p10["vit"] + p11["vit"] + p13["vit"] + p14["vit"]
     launches["paged_attn_k8"] += p10["k8"]
     for entry in report:
         entry["launches"] = launches[entry["name"]]

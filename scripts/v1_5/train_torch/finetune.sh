@@ -1,6 +1,8 @@
 #!/bin/bash
 # PyTorch port: Stage-2 LLaVA full finetune (reference: scripts/v1_5/finetune.sh, lr 2e-5).
 # One process on one device; DEVICE=cpu runs the port on the CPU.
+# Memory-tight cards: add --offload-opt-state (the zero3_offload.json
+# analog -- the Adam moments pinned in host memory, streamed per step).
 DEVICE=${DEVICE:-cuda}
 python -m vcoder_tpu_torch.train.train --stage full \
     --model-path ${MODEL_PATH:-checkpoints/llava-v1.5-7b-pretrain} \

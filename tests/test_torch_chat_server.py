@@ -299,11 +299,11 @@ def test_engine_worker_errors_match_jax(engine_workers, case):
         assert "Exceeds max token length" in got[0]["text"]
 
 
-def test_engine_worker_refuses_slot_engine(chats):
-    """(Named when the slot engine was refused.) ``EngineWorker(dir,
-    engine="slot")`` builds the slot engine over the checkpoint and answers
-    a request over HTTP with ``generate``'s tokens (the Chat worker's text
-    at lookahead 0) and the JAX slot worker's chunks."""
+def test_engine_worker_serves_slot_engine(chats):
+    """``EngineWorker(dir, engine="slot")`` builds the slot engine over the
+    checkpoint and answers a request over HTTP with ``generate``'s tokens
+    (the Chat worker's text at lookahead 0) and the JAX slot worker's
+    chunks."""
     from vcoder_tpu.serve import engine_server as jes
     from vcoder_tpu_torch.serve import engine_server as tes
     from vcoder_tpu_torch.serve.engine import ServingEngine

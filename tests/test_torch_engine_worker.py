@@ -94,11 +94,11 @@ def test_cancel_and_shutdown_end_streams(setup):
     assert not any(eng.row_pages[s] for s in range(eng.max_batch) if eng.slots[s] is None)
 
 
-def test_checkpoint_constructor_serves_and_slot_raises(tmp_path):
+def test_checkpoint_constructor_serves_paged_and_slot(tmp_path):
     """``EngineWorker(model_path)`` loads the checkpoint through ``Chat``,
-    builds a paged engine over it and serves; with ``engine="slot"`` (named
-    when that raised) it builds the slot engine, drops ``page_size`` as the
-    JAX worker does, and serves the same tokens."""
+    builds a paged engine over it and serves; with ``engine="slot"`` it
+    builds the slot engine, drops ``page_size`` as the JAX worker does, and
+    serves the same tokens."""
     from vcoder_tpu_torch.checkpoint import save_pretrained
     from vcoder_tpu_torch.simple_tokenizer import SimpleTokenizer
 

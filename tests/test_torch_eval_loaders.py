@@ -156,13 +156,29 @@ def test_cost_loader_cli_parses_the_jax_flags():
     assert (args.batch_size, args.lookahead, args.max_samples) == (8, 8, 4)
 
 
-def _records(path):
+def _records(path, id_widths=(22,)):
+    """The records without their random ``answer_id``s, whose widths must
+    be in ``id_widths``: the port's are always 22 (``shortuuid``'s), the JAX
+    package's 21 when the number has 21 base-57 digits."""
     out = []
     for line in open(path):
         rec = json.loads(line)
-        assert len(rec.pop("answer_id")) == 22
+        assert len(rec.pop("answer_id")) in id_widths
         out.append(rec)
     return out
+
+
+def test_answer_ids_are_shortuuid_wide(monkeypatch):
+    """A number with fewer base-57 digits still gives 22 characters, padded
+    with the alphabet's first, as ``shortuuid`` pads it."""
+    import uuid
+
+    from vcoder_tpu_torch.eval import shortuuid_like
+
+    monkeypatch.setattr(uuid, "uuid4", lambda: uuid.UUID(int=57 * 3 + 5))
+    assert shortuuid_like.uuid() == "75" + "2" * 20
+    monkeypatch.undo()
+    assert all(len(shortuuid_like.uuid()) == 22 for _ in range(2000))
 
 
 @pytest.mark.parametrize("single_pred", [False, True])
@@ -184,7 +200,7 @@ def test_vqa_loader_writes_jax_records(ckpt, tmp_path, single_pred):
     with f32_loaders() as m:
         m.jv.eval_model(args(tmp_path / "j.jsonl"))
         m.tv.eval_model(args(tmp_path / "t.jsonl", device="cpu"))
-    got, want = _records(tmp_path / "t.jsonl"), _records(tmp_path / "j.jsonl")
+    got, want = _records(tmp_path / "t.jsonl"), _records(tmp_path / "j.jsonl", (21, 22))
     assert got == want and len(got) == 3
     assert got[0]["model_id"] == "vcoder_ds_llava-tiny"
 
@@ -216,7 +232,7 @@ def test_mmbench_loader_writes_jax_records(ckpt, tmp_path):
     with f32_loaders() as m:
         m.jm.eval_model(_mmbench_args(ckpt, tsv, tmp_path / "j.jsonl"))
         m.tm.eval_model(_mmbench_args(ckpt, tsv, tmp_path / "t.jsonl", device="cpu"))
-    got, want = _records(tmp_path / "t.jsonl"), _records(tmp_path / "j.jsonl")
+    got, want = _records(tmp_path / "t.jsonl"), _records(tmp_path / "j.jsonl", (21, 22))
     assert [r["round_id"] for r in got] == [0, 1, 2, 0, 1]
     assert got[1]["options"] == ["dog", "car", "cat"]
     # The JAX loader pads and resizes the decoded image natively, the port's

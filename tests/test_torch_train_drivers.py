@@ -11,7 +11,9 @@ f32; the first step's loss must equal JAX's (``--mesh-data 1 --mesh-fsdp 1
 --mesh-model 1``) within 2e-5 relative (two f32 implementations; the LoRA
 stage's B matrices start at zero, so its other A draws do not move the
 first loss). ``final/`` and ``adapters.safetensors`` must load in both
-packages; ``--offload-opt-state`` and a mesh product above 1 raise.
+packages; a mesh product above 1 raises, with or without
+``--offload-opt-state`` (the offload on one device is
+``test_torch_offload.py``'s).
 """
 
 import functools
@@ -166,7 +168,8 @@ def test_resume_continues_from_the_step_checkpoint(data, f32, tmp_path, capsys):
     assert trainer.step == 3 and len(_losses(out)) == 3
 
 
-@pytest.mark.parametrize("flags", [["--offload-opt-state"], ["--mesh-data", "2"],
+@pytest.mark.parametrize("flags", [["--offload-opt-state", "--mesh-fsdp", "2"],
+                                   ["--mesh-data", "2"],
                                    ["--mesh-fsdp", "2", "--mesh-model", "1"],
                                    ["--mesh-model", "4"]])
 def test_multi_device_flags_raise(data, tmp_path, flags):

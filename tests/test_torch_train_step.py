@@ -354,10 +354,19 @@ def test_initialize_missing_modules_matches_jax_structure():
     assert torch.equal(it["seg_projector"]["w"][0], tbase["mm_projector"]["w"][0])
 
 
-def test_step_options_not_ported_raise(setup):
+def test_multi_device_offload_and_cached_remat_raise(setup):
+    """An opt-state offload over a mesh above one device raises (the
+    multi-device slice; one device is ``test_torch_offload.py``'s), and so
+    does remat with a KV cache."""
+    from vcoder_tpu_torch.parallel import Placement, host_shardings, make_mesh
+
     _, tcfg, _, _, _ = setup
-    with pytest.raises(NotImplementedError):
-        tstep.make_train_step(tcfg, tstep.make_optimizer(1e-3, 10), offload_shardings=(None, None))
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        host_shardings({"mu/x": torch.zeros(2)}, make_mesh(["cpu", "cpu"]))
+    two = {"mu/a": Placement(torch.device("cpu"), "device"),
+           "mu/b": Placement(torch.device("cuda", 1), "device")}
+    with pytest.raises(NotImplementedError, match="one device"):
+        tstep.make_train_step(tcfg, tstep.make_optimizer(1e-3, 10), offload_shardings=(two, two))
     with pytest.raises(ValueError, match="cache-free"):
         from vcoder_tpu_torch.models import llama as tllama
 

@@ -169,13 +169,20 @@ def test_prefetch_thread_is_joined(data, tmp_path):
     assert tt.prefetch_thread is not None and not tt.prefetch_thread.is_alive()
 
 
-def test_trainer_options_not_ported_raise(data, tmp_path):
+def test_trainer_multi_device_mesh_raises(data, tmp_path):
+    """A mesh above one device raises, with or without the opt-state
+    offload (the multi-device slice; a one-device mesh and the offload are
+    ``test_torch_offload.py``'s), and so do params off the device."""
+    from vcoder_tpu_torch.parallel import make_mesh
+
     _, tcfg, ds, _, params = data
     p = from_jax_params(params, tcfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Trainer(tcfg, p, ds, _args(TrainArgs, tmp_path), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Trainer(tcfg, p, ds, _args(TrainArgs, tmp_path, offload_opt_state=True), device="cpu")
+    two = make_mesh(["cpu", "cpu"])
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        Trainer(tcfg, p, ds, _args(TrainArgs, tmp_path), mesh=two, device="cpu")
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        Trainer(tcfg, p, ds, _args(TrainArgs, tmp_path, offload_opt_state=True), mesh=two,
+                device="cpu")
     with pytest.raises(ValueError, match="params lie off"):
         Trainer(tcfg, {**p, "vcoder_lm_emb": p["vcoder_lm_emb"].to("meta")}, ds,
                 _args(TrainArgs, tmp_path), device="cpu")

@@ -78,25 +78,29 @@ def read_safetensors(path: str) -> StateDict:
 
 
 def write_safetensors(path: str, state: StateDict) -> None:
-    """Write CPU-copyable tensors to a .safetensors file."""
-    header, blobs, offset = {}, [], 0
-    for name in sorted(state):
-        t = state[name].detach().to("cpu").contiguous()
-        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+    """Write CPU-copyable tensors to a .safetensors file. The header comes
+    from the shapes and dtypes alone; then each tensor is copied to the host
+    and written in turn, so the host holds one tensor's bytes at a time."""
+    names = sorted(state)
+    header, offset = {}, 0
+    for name in names:
+        t = state[name]
+        n = t.numel() * t.element_size()
         header[name] = {
             "dtype": _ST_NAMES[t.dtype],
             "shape": list(t.shape),
-            "data_offsets": [offset, offset + len(raw)],
+            "data_offsets": [offset, offset + n],
         }
-        blobs.append(raw)
-        offset += len(raw)
+        offset += n
     hdr = json.dumps(header, separators=(",", ":")).encode()
     hdr += b" " * (-len(hdr) % 8)
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(hdr)))
         f.write(hdr)
-        for raw in blobs:
-            f.write(raw)
+        for name in names:
+            t = state[name].detach()
+            if t.numel():
+                f.write(t.to("cpu").contiguous().reshape(-1).view(torch.uint8).numpy())
 
 
 def load_state(model_dir: str) -> StateDict:
@@ -120,6 +124,30 @@ def load_state(model_dir: str) -> StateDict:
             torch.load(os.path.join(model_dir, fname), map_location="cpu", weights_only=True)
         )
     return state
+
+
+def auto_upgrade(model_dir: str, assume_yes: bool = False) -> None:
+    """Upgrade a v0-era checkpoint whose config still says ``model_type:
+    llama`` to ``llava`` (``vcoder_tpu/checkpoint.py:273-302``; reference:
+    vcoder_llava/model/utils.py:4-20). Rewrites config.json in place."""
+    cfg_path = os.path.join(model_dir, "config.json")
+    with open(cfg_path) as f:
+        hf = json.load(f)
+    if "llava" in model_dir and "llava" not in hf.get("model_type", ""):
+        assert hf.get("model_type") == "llama", hf.get("model_type")
+        print(
+            "You are using newer LLaVA code base, while the checkpoint of"
+            " v0 is from older code base."
+        )
+        if not assume_yes:
+            confirm = input("Please confirm that you want to upgrade the checkpoint. [Y/N]")
+            if confirm.lower() not in ("y", "yes"):
+                raise SystemExit("Checkpoint upgrade aborted.")
+        hf["model_type"] = "llava"
+        hf["architectures"] = ["LlavaLlamaForCausalLM"]
+        with open(cfg_path, "w") as f:
+            json.dump(hf, f, indent=2)
+        print("Checkpoint upgraded.")
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,68 @@
-"""Host-side step timing (a copy of ``StepTimer``, ``vcoder_tpu/profiling.py:60``).
+"""Tracing and host-side step timing (port of ``vcoder_tpu/profiling.py``).
 
-The serving engine records ``ttft``, ``decode_step``, ``admit_stage`` and
-``admit_chunk`` samples; :meth:`StepTimer.summary` gives percentiles. Host
-clock only: a sample ends where the caller returns, which on CUDA is after
-the step's host synchronisation (the engine reads its tokens back).
+* :func:`trace` -- context manager around ``torch.profiler`` that writes a
+  Chrome trace (host ops, and CUDA kernels and copies on a card) under a
+  directory; the JAX package writes ``jax.profiler``'s TensorBoard trace.
+* :func:`annotate` -- a named region visible in the trace
+  (``torch.profiler.record_function``).
+* :func:`maybe_trace` -- :func:`trace` iff ``VCODER_TPU_TRACE`` (or a
+  default directory) is set.
+* :class:`StepTimer` -- named host-clock samples with percentile summaries.
+  The serving engine records ``ttft``, ``decode_step``, ``admit_stage`` and
+  ``admit_chunk``. A sample ends where the caller returns, which on CUDA is
+  after the step's host synchronisation (the engine reads its tokens back).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
+
+
+@contextlib.contextmanager
+def trace(logdir: str, *, create_perfetto_link: bool = False):
+    """Profile the enclosed block and write ``trace-<pid>-<ns>.json`` (Chrome
+    trace format) under ``logdir``, also when the block raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if create_perfetto_link:
+        raise NotImplementedError("create_perfetto_link is jax.profiler's; the port writes "
+                                  "a Chrome trace that Perfetto opens")
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield logdir
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(
+            os.path.join(logdir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
+
+
+def annotate(name: str):
+    """Named region for the profiler timeline."""
+    from torch.profiler import record_function
+
+    return record_function(name)
+
+
+@contextlib.contextmanager
+def maybe_trace(default_logdir: Optional[str] = None):
+    """Trace iff VCODER_TPU_TRACE (or default_logdir) is set."""
+    logdir = os.environ.get("VCODER_TPU_TRACE", default_logdir)
+    if logdir:
+        with trace(logdir):
+            yield logdir
+    else:
+        yield None
 
 
 class StepTimer:

@@ -17,10 +17,14 @@ numbers than JAX's), wraps every decoder linear in fresh adapters for
 newest ``checkpoint-*``), then writes a step checkpoint,
 ``adapters.safetensors`` and ``final/`` (LoRA merged) with the tokenizer.
 
-It runs on one device, ``--device`` (CUDA unless ``cpu``). The multi-device
-flags belong to the multi-device slice: ``--mesh-data/--mesh-fsdp/
---mesh-model`` with a product above 1 and ``--offload-opt-state`` raise
-``NotImplementedError``; left unset or 1, the run takes one device.
+It runs on one device, ``--device`` (CUDA unless ``cpu``), over a
+one-device mesh entered with ``use_mesh`` as the JAX driver does
+(``drivers.py:208-236``). JAX's mesh takes every visible device with
+``fsdp`` absorbing them; the port's takes the one ``--device``, and
+``--mesh-data/--mesh-fsdp/--mesh-model`` with a product above 1 raise
+``NotImplementedError`` (the multi-device slice). ``--offload-opt-state``
+keeps the optimizer state in pinned host memory, streamed through the card
+each step (the zero3_offload analog; ``train/step.py``).
 """
 
 from __future__ import annotations
@@ -74,7 +78,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh-data", type=int, default=None)
     p.add_argument("--mesh-fsdp", type=int, default=None)
     p.add_argument("--mesh-model", type=int, default=None)
-    # zero3_offload analog (the multi-device slice: raises)
+    # zero3_offload analog: the optimizer state in host memory
     p.add_argument("--offload-opt-state", action=argparse.BooleanOptionalAction,
                    default=False)
     return p
@@ -91,17 +95,12 @@ STAGE_MODEL_TYPE = {
 
 
 def check_single_device(args) -> None:
-    """Refuse the flags of the multi-device slice."""
+    """Refuse a mesh above one device (the multi-device slice)."""
     mesh = [getattr(args, f"mesh_{ax}", None) or 1 for ax in ("data", "fsdp", "model")]
     if mesh[0] * mesh[1] * mesh[2] > 1:
         raise NotImplementedError(
             f"--mesh-data/--mesh-fsdp/--mesh-model {mesh}: a multi-device mesh belongs to the "
             "port's multi-device slice; leave them unset or 1 for one device"
-        )
-    if getattr(args, "offload_opt_state", False):
-        raise NotImplementedError(
-            "--offload-opt-state belongs to the port's multi-device slice (the JAX package "
-            "ties it to a mesh)"
         )
 
 
@@ -147,11 +146,14 @@ def run_stage(stage: str, args):
     from vcoder_tpu_torch.checkpoint import save_pretrained
     from vcoder_tpu_torch.config import _variant_flags
     from vcoder_tpu_torch.models.vcoder import initialize_missing_modules
+    from vcoder_tpu_torch.parallel import make_mesh, use_mesh
     from vcoder_tpu_torch.train.datasets import VCoderDataset
     from vcoder_tpu_torch.train.trainer import TrainArgs, Trainer
 
     check_single_device(args)
     device = getattr(args, "device", "cuda")
+    # The one --device (JAX's mesh takes every visible device).
+    mesh = make_mesh([device], data=args.mesh_data, fsdp=args.mesh_fsdp, model=args.mesh_model)
     tokenizer, model, *_ = builder.load_pretrained_model(args.model_path, device=device)
     cfg = model.config
     if tokenizer is None:
@@ -215,24 +217,26 @@ def run_stage(stage: str, args):
         # --gradient-checkpointing selects the "dots" policy (save the
         # projection products, recompute the rest).
         remat="dots" if args.gradient_checkpointing else False,
+        offload_opt_state=args.offload_opt_state,
     )
-    trainer = Trainer(cfg, model.params, dataset, targs, device=device)
-    if trainer.maybe_resume():
-        print(f"Resumed from step {trainer.step}")
-    trainer.train(max_steps=args.max_steps)
-    trainer.save_checkpoint()
-    trainer.save_adapters()
+    with use_mesh(mesh):
+        trainer = Trainer(cfg, model.params, dataset, targs, mesh=mesh, device=device)
+        if trainer.maybe_resume():
+            print(f"Resumed from step {trainer.step}")
+        trainer.train(max_steps=args.max_steps)
+        trainer.save_checkpoint()
+        trainer.save_adapters()
 
-    final_params = trainer.params
-    if lora_enable:
-        # Fold the adapters into dense weights so final/ is a plain
-        # checkpoint; adapters.safetensors keeps the unmerged a/b leaves.
-        from vcoder_tpu_torch.lora import merge_lora
+        final_params = trainer.params
+        if lora_enable:
+            # Fold the adapters into dense weights so final/ is a plain
+            # checkpoint; adapters.safetensors keeps the unmerged a/b leaves.
+            from vcoder_tpu_torch.lora import merge_lora
 
-        final_params = merge_lora(final_params)
-    final = os.path.join(args.output_dir, "final")
-    save_pretrained(final, final_params, cfg)
-    if hasattr(tokenizer, "save_pretrained"):
-        tokenizer.save_pretrained(final)
+            final_params = merge_lora(final_params)
+        final = os.path.join(args.output_dir, "final")
+        save_pretrained(final, final_params, cfg)
+        if hasattr(tokenizer, "save_pretrained"):
+            tokenizer.save_pretrained(final)
     print("training complete:", args.output_dir)
     return trainer

@@ -4,8 +4,13 @@
 * Batches collate into bucketed static sequence lengths (``BUCKETS``), as
   in the JAX package, so the kernels see a handful of shapes.
 * The step is ``train/step.py``'s, on one device (CUDA unless the caller
-  passes ``device="cpu"``). A mesh and opt-state offload belong to the
-  multi-chip slice and raise ``NotImplementedError``.
+  passes ``device="cpu"``). ``mesh`` may be a one-device ``parallel.Mesh``
+  (its device must be ``device``); a mesh above one device belongs to the
+  multi-device slice and raises ``NotImplementedError``.
+* ``offload_opt_state`` (the zero3_offload analog) needs a mesh, as in the
+  JAX package: the shaped optimizer-state leaves are made in host memory
+  (pinned on CUDA; ``parallel/sharding.py``) and streamed through the device
+  by the step. Checkpoints read and write them in place.
 * Checkpoints are ``checkpoint-<step>/state.safetensors`` (params under
   ``params/<path>``, optimizer state under ``opt/<key>``, and ``step``),
   written and read by the port's own safetensors code, rotated to
@@ -43,6 +48,7 @@ import torch
 from vcoder_tpu_torch.checkpoint import read_safetensors, write_safetensors
 from vcoder_tpu_torch.config import VCoderConfig
 from vcoder_tpu_torch.device import resolve_device
+from vcoder_tpu_torch.parallel.sharding import device_shardings_like, host_shardings
 from vcoder_tpu_torch.train.collator import collate_batch
 from vcoder_tpu_torch.train.sampler import LengthGroupedSampler
 from vcoder_tpu_torch.train.step import (
@@ -136,7 +142,10 @@ class TrainArgs:
     seed: int = 42
     remat: object = "dots"  # True | "dots" | False
     attn_impl: str = "auto"
-    offload_opt_state: bool = False  # not ported yet: raises
+    # zero3_offload analog (reference: scripts/zero3_offload.json): the
+    # optimizer state in host memory, streamed through the device per step.
+    # Requires a mesh (wrap one card in single_device_mesh()).
+    offload_opt_state: bool = False
     # Host input pipeline: threads loading samples (0 = inline) and how
     # many collated batches to stage ahead of the step.
     dataloader_workers: int = 8
@@ -154,18 +163,23 @@ class Trainer:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError("mesh-sharded training is not ported yet")
-        if args.offload_opt_state:
-            raise NotImplementedError("opt-state offload is not ported yet")
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError(
+                f"a mesh of {mesh.size} devices: mesh-sharded training belongs to the port's "
+                "multi-device slice")
         self.device = resolve_device(device)
+        if mesh is not None and (mesh.device.type, mesh.device.index or 0) != (
+                self.device.type, self.device.index or 0):
+            raise ValueError(f"the mesh's device {mesh.device} is not the trainer's {self.device}")
+        self.mesh = mesh
         off = [p for p, t in named_leaves(params) if t.device.type != self.device.type]
         if off:
             raise ValueError(f"params lie off {self.device} (e.g. {off[0]})")
         self.cfg = cfg
         self.args = args
         self.dataset = dataset
-        self.global_batch = args.per_device_train_batch_size
+        world = 1 if mesh is None else mesh.shape["data"] * mesh.shape["fsdp"]
+        self.global_batch = args.per_device_train_batch_size * world
         self.accum = max(args.gradient_accumulation_steps, 1)
         # self.step / total_steps count MICRO-batches; the schedule runs in
         # optimizer updates.
@@ -181,9 +195,24 @@ class Trainer:
             accum_steps=self.accum,
         )
         self.params = params
-        self.opt_state = init_opt_state(params, self.optimizer, args.stage)
+        offload_shardings = None
+        if args.offload_opt_state:
+            if mesh is None:
+                raise ValueError(
+                    "offload_opt_state requires a mesh (host placements are mesh-relative; "
+                    "wrap one card in parallel.single_device_mesh())")
+            # The state's shapes, then its zeros made where they live: the
+            # moments never pass through the device whole.
+            meta = {p: t.to("meta") for p, t in trainable_leaves(params, args.stage).items()}
+            shapes = self.optimizer.init(meta)
+            host_sh = host_shardings(shapes, mesh)
+            self.opt_state = {k: host_sh[k].zeros(t) for k, t in shapes.items()}
+            offload_shardings = (device_shardings_like(host_sh), host_sh)
+        else:
+            self.opt_state = init_opt_state(params, self.optimizer, args.stage)
         self.step_fn = make_train_step(
-            cfg, self.optimizer, stage=args.stage, attn_impl=args.attn_impl, remat=args.remat
+            cfg, self.optimizer, stage=args.stage, attn_impl=args.attn_impl, remat=args.remat,
+            offload_shardings=offload_shardings,
         )
         self.step = 0
         self.prefetch_thread: Optional[threading.Thread] = None
