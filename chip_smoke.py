@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``vcoder_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py                  # every phase (1-4, 6, 7, 8, 9, 12, 5, 11a, 10,
-                                           # 11, 13, 14)
+                                           # 11, 13, 14, 15)
     python3 chip_smoke.py --profile        # also torch.profiler: two B=1 requests,
                                            # the paged engine's decode step at B=8,
                                            # in bf16, with int4/int8 weights and with
@@ -216,6 +216,24 @@ Phases, in order; any failure exits non-zero:
    peak device memory (offloaded and resident), host RSS and pinned bytes,
    and each offloaded step's H2D, D2H and update times on the copy
    streams' events with their overlap.
+15. The mesh, last (``phase_sharded``; alone ``scripts/multichip_phase.py``):
+   in this process the one-device run on fresh 7B weights (the tower on
+   its unfused blocks, the route a mesh takes): engine A's traffic, 8
+   requests of 16 tokens, through paged engines A (bf16 pools, K8), B
+   (int8 pools, K4), V (``speculative=4``, K3) and F (``FUSED_APPEND``,
+   K7) and the slot engine S1, then phase 8's stage, 4 steps at a global
+   B=4. Then the ranks, one process per card through
+   ``parallel/launch.spawn`` over NCCL (four cards mesh (1, 2, 2), two
+   (1, 1, 2), one card a one-rank group: two gloo ranks on one card crash
+   in DTensor's all-gather), each building the same weights and keeping
+   its shards, run the same. Gates: equal tokens and losses on every rank;
+   prefill logits within ``SHARDED_LOGIT_REL_L2`` of the one-device run
+   and every first token equal; each loss within ``SHARDED_LOSS_REL``,
+   each adapter gradient norm within ``SHARDED_NORM_REL``; two frozen
+   weights' shards unchanged; per rank 64 K1 and 32 K6 a training step,
+   32 launches of the engine's paged kernel a decode dispatch, no K2/K9.
+   Logs the gaps, the share of equal later tokens, step times against the
+   one-device run and each rank's peak memory.
 
 The card machine's disk takes ~45 GiB of writes a run (deleted files
 count), and phase 10's directory takes 13.5 of them: phases 13 and 14 write
@@ -1938,9 +1956,11 @@ def _serve(model, tok, pictures, max_new_tokens):
     return ids, res
 
 
-def build_7b():
+def build_7b(device="cuda", quiet: bool = False, place=None):
     """VCoder-DS-7B with seeded random bf16 weights and EOS off, built once
-    and shared by phases 4 and 6. Returns (cfg, params, model, tokenizer)."""
+    and shared by phases 4 and 6 (phase 15 builds them again on each of its
+    ranks' cards, ``place`` sharding each leaf as it is drawn). Returns
+    (cfg, params, model, tokenizer)."""
     import torch
 
     from vcoder_tpu_torch.builder import VCoderForCausalLM
@@ -1952,12 +1972,14 @@ def build_7b():
     # EOS off (an id argmax never emits): every request decodes all tokens.
     cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, eos_token_id=-1))
     t0 = time.perf_counter()
-    params = model_mod.init_vcoder_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    params = model_mod.init_vcoder_params(cfg, seed=0, dtype=torch.bfloat16, device=device,
+                                           place=place)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _flat(params).values())
-    log(f"VCoder-DS-7B random bf16 weights, {n_params / 1e9:.3f} B params, "
-        f"init {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    if not quiet:
+        log(f"VCoder-DS-7B random bf16 weights, {n_params / 1e9:.3f} B params, "
+            f"init {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     tok = SimpleTokenizer.build_from_texts([PROMPT])
     return cfg, params, VCoderForCausalLM(cfg, params), tok
 
@@ -2026,7 +2048,7 @@ ENGINE_SIZES = [(480, 640), (720, 540), (375, 500), (600, 800), (512, 384), (333
                 (640, 480), (400, 600)]
 
 
-def _prepared(ids, pictures, max_new):
+def _prepared(ids, pictures, max_new, device="cuda"):
     """A PreparedRequest carrying the pictures as preprocessed numpy pixels
     [1, 336, 336, 3] (what a front end hands the worker), plus the same
     pixels as bf16 tensors for ``generate``."""
@@ -2035,7 +2057,7 @@ def _prepared(ids, pictures, max_new):
     from vcoder_tpu_torch.preprocess import process_images
     from vcoder_tpu_torch.serve.chat import PreparedRequest
 
-    px = [process_images([a], dtype=torch.bfloat16, device="cuda") for a in pictures]
+    px = [process_images([a], dtype=torch.bfloat16, device=device) for a in pictures]
     host = [p.float().cpu().numpy() for p in px]
     prep = PreparedRequest(ori_prompt=PROMPT, input_ids=list(ids), images=host[0], segs=host[1],
                            depths=host[2], max_new_tokens=max_new, temperature=0.0, top_p=1.0,
@@ -4652,6 +4674,379 @@ def phase_full_stage(ckpt: str, device: str = "cuda", turns: int = LLAVA_TURNS) 
                 step_ms_p50=ms_p50, tokens_s=tok_s, peak=peak, pinned=pinned, **ab)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the mesh (``parallel/``) at full width, one process per rank
+# ---------------------------------------------------------------------------
+
+# Engines of phase 15, each on engine A's traffic (max_batch 8, EOS off):
+# label -> (kind, keyword arguments, FUSED_APPEND). A runs K8, B K4, V K3
+# (speculative verify windows), F K7; S1 is the slot engine (no paged kernel).
+SHARDED_ENGINES = {
+    "A": ("paged", {}, False),
+    "B": ("paged", {"kv_quant": True}, False),
+    "V": ("paged", {"speculative": 4}, False),
+    "F": ("paged", {}, True),
+    "S1": ("slot", {}, False),
+}
+SHARDED_MAX_NEW = 16
+SHARDED_TRAIN_STEPS = 4
+# Gates against the one-device run: prefill logits (the decoder's
+# row-parallel sums round in another order; PR 15's int8-cache gap was
+# 0.040-0.045), each step's loss, each adapter leaf's gradient norm.
+SHARDED_LOGIT_REL_L2 = 0.05
+SHARDED_LOSS_REL = 1e-2
+SHARDED_NORM_REL = 3e-2
+
+
+def sharded_form(n_cards: int) -> dict:
+    """The mesh phase 15 runs on ``n_cards``, one NCCL rank per card: four
+    cards (1, 2, 2), JAX's ``dryrun_multichip`` factorisation; two (1, 1,
+    2); one card a one-rank group (1, 1, 1) that still takes the sharded
+    path."""
+    if n_cards >= 4:
+        return dict(world=4, shape=(1, 2, 2))
+    if n_cards >= 2:
+        return dict(world=2, shape=(1, 1, 2))
+    return dict(world=1, shape=(1, 1, 1))
+
+
+def sharded_traffic(cfg, device="cuda") -> dict:
+    """Engine A's traffic (phase 6's pictures) as host arrays a rank can
+    take: the prompt ids and, per request, the preprocessed pixels."""
+    from vcoder_tpu_torch.mm_tokens import tokenizer_depth_seg_token
+    from vcoder_tpu_torch.simple_tokenizer import SimpleTokenizer
+
+    tok = SimpleTokenizer.build_from_texts([PROMPT])
+    rng = np.random.RandomState(11)
+    ids = tokenizer_depth_seg_token(PROMPT, tok)
+    preps = [_prepared(ids, _images(rng, h, w), SHARDED_MAX_NEW, device)[0]
+             for h, w in ENGINE_SIZES]
+    return dict(ids=list(ids), pixels=[(p.images, p.segs, p.depths) for p in preps])
+
+
+def sharded_engines(cfg, params, traffic, mesh, device) -> dict:
+    """Every engine of ``SHARDED_ENGINES`` on the traffic, over ``mesh``
+    (None: one device): tokens, first-token logits, launch counts (set to 0
+    just before each engine, read just after), decode step p50 and count."""
+    import torch
+
+    from vcoder_tpu_torch.ops import paged_attention as pa
+    from vcoder_tpu_torch.serve.engine import ServingEngine
+    from vcoder_tpu_torch.serve.paged_engine import PagedServingEngine
+
+    out = {}
+    for label, (kind, kw, fused) in SHARDED_ENGINES.items():
+        make = ServingEngine if kind == "slot" else PagedServingEngine
+        pa.FUSED_APPEND = fused
+        try:
+            eng = make(cfg, params, max_batch=8, max_len=2048, eos_id=-1, device=device,
+                       mesh=mesh, **kw)
+            logits = {}
+            first = eng._sample_first
+
+            def keep(lg, req, first=first, logits=logits):
+                logits[req.request_id] = lg.float().cpu()
+                return first(lg, req)
+
+            eng._sample_first = keep
+            rids = [eng.add_request(traffic["ids"], images=i, segs=s, depths=d,
+                                    max_new_tokens=SHARDED_MAX_NEW)
+                    for i, s, d in traffic["pixels"]]
+            _reset_counters()
+            res = eng.run()
+            _sync(device)
+            counts = _counters()
+            counts.update(bf16=pa.launches_bf16, q8=pa.launches_q8, fused=pa.launches_fused)
+        finally:
+            pa.FUSED_APPEND = False
+        steps = eng.timer.samples.get("decode_step", [])
+        out[label] = dict(tokens=[res[r] for r in rids],
+                          logits=torch.stack([logits[r] for r in rids]),
+                          counts=counts, step_p50_ms=float(np.median(steps)) * 1e3,
+                          steps=len(steps))
+        eng.close()
+        del eng
+    return out
+
+
+def _stamp(device):
+    """A start mark: a recorded CUDA event on CUDA, the host clock else."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _elapsed_ms(start, device) -> float:
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return (time.perf_counter() - start) * 1e3
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def sharded_training(cfg, params, mesh, device) -> dict:
+    """Phase 8's stage (vcoder_ds, 4 steps at a global B=4 over phase 8's
+    samples, ``remat="dots"``) through ``Trainer`` over ``mesh`` (None: one
+    device): losses, adapter gradient norms, CUDA-event step times, launch
+    counts, and whether two frozen leaves (this rank's shards) kept every
+    bit."""
+    import torch
+
+    from vcoder_tpu_torch.train.trainer import Trainer
+
+    ds = DSSamples(20, cfg.vision.image_size)
+    records = []
+    with tempfile.TemporaryDirectory() as tmp:
+        args = train_args(tmp)
+        rows = mesh.row_shards if mesh is not None else 1
+        args.per_device_train_batch_size //= rows
+        trainer = Trainer(cfg, params, ds, args, mesh=mesh, device=device)
+        frozen = {k: _local_copy(v) for k, v in (("q_proj", params["lm"]["layers"]["q_proj"]),
+                                                 ("fc1", params["vision_tower"]["layers"]["fc1"]))}
+        inner = trainer.step_fn
+
+        def timed_step(p, state, batch):
+            t0 = _stamp(device)
+            res = inner(p, state, batch)
+            records.append(dict(ms=_elapsed_ms(t0, device), norms={
+                k: float(v) for k, v in res[2]["leaf_grad_norms"].items()}))
+            return res
+
+        trainer.step_fn = timed_step
+        _reset_counters()
+        hist = trainer.train(max_steps=SHARDED_TRAIN_STEPS)
+        _sync(device)
+        counts = _counters()
+        kept = all(torch.equal(_local_copy(v), frozen[k]) for k, v in
+                   (("q_proj", params["lm"]["layers"]["q_proj"]),
+                    ("fc1", params["vision_tower"]["layers"]["fc1"])))
+        del trainer, frozen
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(losses=[h["loss"] for h in hist], norms=[r["norms"] for r in records],
+                step_ms=[r["ms"] for r in records], counts=counts, frozen_kept=kept)
+
+
+def _local_copy(t):
+    from torch.distributed.tensor import DTensor
+
+    return (t.to_local() if isinstance(t, DTensor) else t).clone()
+
+
+def _sharded_rank(rank, world, form, traffic, device):
+    """One rank of phase 15: the 7B weights from phase 4's seed (the same on
+    every rank; each keeps its shards), the engines, then the training stage
+    (it moves the adapters in place, so it runs last)."""
+    import torch
+
+    from vcoder_tpu_torch.parallel import leaf_sharder, make_mesh
+
+    cuda = torch.device(device).type == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
+    shape = form["shape"]
+    mesh = make_mesh([dev] * world, data=shape[0], fsdp=shape[1], model=shape[2])
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    cfg, params, _, _ = build_7b(device=dev, quiet=rank != 0, place=leaf_sharder(mesh))
+    build_peak, held = peak_gib(), torch.cuda.memory_allocated(dev) / 2**30 if cuda else 0.0
+    leaves = list(_flat(params).values())
+    leaf = max(t.numel() * t.element_size() for t in leaves) / 2**30
+    shards = sum((t.to_local() if hasattr(t, "to_local") else t).numel() * t.element_size()
+                 for t in leaves) / 2**30
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    engines = sharded_engines(cfg, params, traffic, mesh, dev)
+    train = sharded_training(cfg, params, mesh, dev)
+    return dict(engines=engines, train=train, device=str(dev), build_peak_gib=build_peak,
+                held_gib=held, shards_gib=shards, leaf_gib=leaf, peak_gib=peak_gib(),
+                mesh=mesh.shape, row=mesh.row_index, model_rank=mesh.local_rank("model"))
+
+
+# Rows of the row-parallel product check: about one prefill's tokens.
+ROW_SPLIT_M = 1232
+
+
+def check_row_split(params, device="cuda") -> dict:
+    """The row-parallel products of a model split of 2 against one device's
+    product, on one card: layer 0's o_proj [4096, 4096] and down_proj
+    [11008, 4096] at the 7B shapes, seeded bf16 activations of
+    ``ROW_SPLIT_M`` rows, the contraction split in halves as two model
+    ranks hold it. ``f32``: ``spmd.partial_product``'s partials (the
+    branch ``row_parallel`` takes in the engines' forward) summed, then
+    rounded once; ``bf16``: each half's bf16 product summed in bf16. Gates:
+    the partials are f32 and their gap to the full product is below the
+    bf16 partials' in relative L2 and in the share of elements that differ."""
+    import torch
+
+    from vcoder_tpu_torch.ops.quant import qmatmul as qm
+    from vcoder_tpu_torch.parallel import spmd
+
+    gen = torch.Generator(device=device).manual_seed(21)
+    out = {}
+    with torch.no_grad():
+        for name in ("o_proj", "down_proj"):
+            w = params["lm"]["layers"][name][0]
+            K, h = w.shape[0], w.shape[0] // 2
+            x = torch.randn((ROW_SPLIT_M, K), generator=gen, device=device, dtype=w.dtype)
+            full = qm(x, w)
+            halves = [(x[:, :h].contiguous(), w[:h]), (x[:, h:].contiguous(), w[h:])]
+            parts = [spmd.partial_product(a, b, qm) for a, b in halves]
+            routes = {"f32": (parts[0] + parts[1]).to(w.dtype),
+                      "bf16": qm(*halves[0]) + qm(*halves[1])}
+            res = {"partial_dtype": str(parts[0].dtype).replace("torch.", "")}
+            for route, y in routes.items():
+                res[route] = dict(rel_l2=_rel_l2(y, full),
+                                  differ=float((y != full).float().mean()))
+            out[name] = res
+            if (parts[0].dtype != torch.float32
+                    or res["f32"]["rel_l2"] >= res["bf16"]["rel_l2"]
+                    or res["f32"]["differ"] >= res["bf16"]["differ"]):
+                raise SystemExit(f"row-parallel check {name}: {res}")
+    log("row split (model = 2, one card): " + json.dumps(out))
+    return out
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def phase_sharded(device: str = "cuda") -> dict:
+    """Phase 15: training and both serving engines over a mesh, one process
+    per rank (``parallel/launch.spawn``: NCCL on the cards, gloo on the CPU),
+    against the one-device run computed first in this process with
+    the tower on the unfused blocks, the route a mesh takes (the fused
+    tower's own gap from them reads ~0.05 relative L2 in the logits).
+    First, on one card, :func:`check_row_split`. Gates: the build of each
+    rank held no more than its shards and one whole leaf; every rank
+    returns the same tokens and losses; prefill logits of
+    every engine within ``SHARDED_LOGIT_REL_L2`` of the one-device run and
+    every first token equal (the share of equal later tokens reported); each
+    step's loss within ``SHARDED_LOSS_REL`` and each adapter gradient norm
+    within ``SHARDED_NORM_REL``; frozen weights unchanged; per rank, K1 64
+    and K6 32 per training step, 32 launches per decode dispatch of K8 (A),
+    K4 (B), K3 (V) and K7 (F), no paged launch in S1 and no K2 or K9 under
+    the mesh (launch gates on CUDA only: the CPU routes launch nothing).
+    Returns rank 0's launch counts."""
+    import torch
+
+    from vcoder_tpu_torch.parallel import launch
+
+    cuda = torch.device(device).type == "cuda"
+    n_cards = torch.cuda.device_count() if cuda else 1
+    form = sharded_form(n_cards)
+    log(f"mesh (phase 15): {n_cards} card(s) -> {form['world']} rank(s), mesh (data, fsdp, "
+        f"model) = {form['shape']}")
+    t0 = time.perf_counter()
+    from vcoder_tpu_torch.models import clip
+
+    cfg, params, _, _ = build_7b(device=device)
+    row_split = check_row_split(params, device) if cuda else None
+    traffic = sharded_traffic(cfg, device)
+    # The one-device run takes the tower route a mesh takes (the unfused
+    # blocks, as JAX's clip.py:138-140), so the gaps are the sharding's.
+    clip.FUSED_BLOCKS = False
+    try:
+        ref_eng = sharded_engines(cfg, params, traffic, None, device)
+        ref_train = sharded_training(cfg, params, None, device)
+    finally:
+        clip.FUSED_BLOCKS = True
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ranks = launch.spawn(_sharded_rank, form["world"], form, traffic, device, device=device,
+                         timeout_s=480)
+    t_ranks = time.perf_counter() - t1
+    bad = []
+    r0 = ranks[0]
+    for r, res in enumerate(ranks[1:], 1):
+        for label in SHARDED_ENGINES:
+            if res["engines"][label]["tokens"] != r0["engines"][label]["tokens"]:
+                bad.append(f"rank {r} engine {label} tokens differ from rank 0's")
+        if res["train"]["losses"] != r0["train"]["losses"]:
+            bad.append(f"rank {r} losses differ from rank 0's")
+    for r, res in enumerate(ranks if cuda else ()):
+        for label, (kind, kw, fused) in SHARDED_ENGINES.items():
+            e, c = res["engines"][label], res["engines"][label]["counts"]
+            want = {"A": "k8", "B": "q8", "V": "bf16", "F": "fused"}.get(label)
+            paged = {k: c[k] for k in ("k8", "q8", "bf16", "fused")}
+            expect = {k: (32 * e["steps"] if k == want else 0) for k in paged}
+            if paged != expect or c["vit"] or c["mlp"]:
+                bad.append(f"rank {r} engine {label}: launches {c}, want {expect}, no K2/K9")
+        c = res["train"]["counts"]
+        if (c["flash"], c["flash_bwd"], c["vit"]) != (64 * SHARDED_TRAIN_STEPS,
+                                                       32 * SHARDED_TRAIN_STEPS, 0):
+            bad.append(f"rank {r} training launches {c}")
+    for r, res in enumerate(ranks):
+        if not res["train"]["frozen_kept"]:
+            bad.append(f"rank {r}: a frozen weight changed")
+        # Leaf by leaf: the build never held more than the shards and one
+        # whole leaf (its largest) at once.
+        if cuda and (res["build_peak_gib"] > res["held_gib"] + 1.05 * res["leaf_gib"] + 0.1
+                     or res["held_gib"] > res["shards_gib"] + 0.1):
+            bad.append(f"rank {r}: build peak {res['build_peak_gib']:.2f} GiB, holding "
+                       f"{res['held_gib']:.2f} GiB for {res['shards_gib']:.2f} GiB of shards "
+                       f"(bound: shards + one {res['leaf_gib']:.2f} GiB leaf)")
+    gaps = {}
+    for label in SHARDED_ENGINES:
+        got, ref = r0["engines"][label], ref_eng[label]
+        rel = [_rel_l2(a, b) for a, b in zip(got["logits"], ref["logits"])]
+        firsts = [a[0] == b[0] for a, b in zip(got["tokens"], ref["tokens"])]
+        later = [x == y for a, b in zip(got["tokens"], ref["tokens"])
+                 for x, y in zip(a[1:], b[1:])]
+        gaps[label] = dict(logit_rel_l2_max=round(max(rel), 5), first_equal=sum(firsts),
+                           later_equal=round(sum(later) / len(later), 4),
+                           step_p50_ms=round(got["step_p50_ms"], 2),
+                           one_device_step_p50_ms=round(ref["step_p50_ms"], 2))
+        if max(rel) > SHARDED_LOGIT_REL_L2 or not all(firsts):
+            bad.append(f"engine {label}: prefill logits rel L2 {max(rel):.4f} (bound "
+                       f"{SHARDED_LOGIT_REL_L2}), first tokens equal {sum(firsts)}/{len(firsts)}")
+    t, rt = r0["train"], ref_train
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(t["losses"], rt["losses"])]
+    norm_rel = max((abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) if b[k] else abs(a[k]))
+                   for a, b in zip(t["norms"], rt["norms"]) for k in b)
+    if len(t["losses"]) != SHARDED_TRAIN_STEPS or max(loss_rel) > SHARDED_LOSS_REL:
+        bad.append(f"training losses {t['losses']} vs one device {rt['losses']}")
+    if norm_rel > SHARDED_NORM_REL:
+        bad.append(f"adapter gradient norms rel {norm_rel:.4f} (bound {SHARDED_NORM_REL})")
+    summary = dict(
+        form=form, row_split=row_split, reference_s=round(t_ref, 1),
+        ranks_s=round(t_ranks, 1), gaps=gaps,
+        loss_rel_max=round(max(loss_rel), 6), norm_rel_max=round(norm_rel, 6),
+        losses=[round(x, 5) for x in t["losses"]],
+        one_device_losses=[round(x, 5) for x in rt["losses"]],
+        step_ms=[round(x, 1) for x in t["step_ms"]],
+        one_device_step_ms=[round(x, 1) for x in rt["step_ms"]],
+        build_peak_gib=[round(r["build_peak_gib"], 2) for r in ranks],
+        held_gib=[round(r["held_gib"], 2) for r in ranks],
+        shards_gib=[round(r["shards_gib"], 2) for r in ranks],
+        peak_gib=[round(r["peak_gib"], 2) for r in ranks],
+        launches_rank0={"train": t["counts"], **{k: v["counts"] for k, v in
+                                                  r0["engines"].items()}})
+    log("sharded: " + json.dumps(summary))
+    if bad:
+        raise SystemExit("mesh phase: " + "; ".join(bad))
+    total = dict(flash=t["counts"]["flash"], flash_bwd=t["counts"]["flash_bwd"],
+                 train_flash=t["counts"]["flash"])
+    for key in ("k8", "q8", "bf16", "fused"):
+        total[key] = sum(e["counts"][key] for e in r0["engines"].values())
+    total["flash"] += sum(e["counts"]["flash"] for e in r0["engines"].values())
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -4744,11 +5139,19 @@ def main() -> int:
 
     p10 = phase_surfaces(cfg, held, tok10, main_counts["requests"], then=in_checkpoint_dir)
     lap("surfaces_cost_eval_train_stages")
+    p15 = phase_sharded()
+    lap("sharded")
     launches["flash_fwd"] += p10["flash"] + p11["flash"] + p13["flash"] + p14["flash"]
     launches["flash_fwd_train"] += p13["flash"] + p14["flash"]
     launches["flash_bwd"] += p13["flash_bwd"] + p14["flash_bwd"]
     launches["vit_block"] += p10["vit"] + p11["vit"] + p13["vit"] + p14["vit"]
-    launches["paged_attn_k8"] += p10["k8"]
+    launches["paged_attn_k8"] += p10["k8"] + p15["k8"]
+    launches["flash_fwd"] += p15["flash"]
+    launches["flash_fwd_train"] += p15["train_flash"]
+    launches["flash_bwd"] += p15["flash_bwd"]
+    launches["paged_attn_q8"] += p15["q8"]
+    launches["paged_attn_bf16"] += p15["bf16"]
+    launches["paged_attn_fused"] += p15["fused"]
     for entry in report:
         entry["launches"] = launches[entry["name"]]
     log(f"launches on the driven paths: {json.dumps(launches)}")

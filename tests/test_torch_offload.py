@@ -343,8 +343,16 @@ def test_engines_over_a_one_device_mesh_give_the_unmeshed_tokens(kind):
         res = eng.run()
         got.append([res[r] for r in rids])
     assert got[0] == got[1] and all(len(v) == 4 for v in got[0])
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # A plain mesh of two devices raises; two ranks of a process group serve.
+    with pytest.raises(NotImplementedError, match="multi-device.*torch.distributed.run"):
         make(cfg, params, device="cpu", mesh=make_mesh(["cpu", "cpu"], data=2))
+    from tests.test_torch_sharding import engine_rank
+    from vcoder_tpu_torch.parallel import launch
+
+    reqs = [([1, 10 + i, 11, -200, -400, -300, 12, 13 + i], px, 4) for i in range(2)]
+    ranks = launch.spawn(engine_rank, 2, kind, (2, 1, 1), reqs, {"max_batch": 2},
+                         timeout_s=120)
+    assert ranks == [got[0]] * 2
 
 
 # ---------------------------------------------------------------------------

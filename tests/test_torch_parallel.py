@@ -66,8 +66,15 @@ def test_axes_and_one_device_meshes():
     assert m.device == torch.device("cpu")
     big = tmesh.make_mesh(["cpu"] * 4, data=2)
     assert big.shape == {"data": 2, "fsdp": 2, "model": 1}
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # A plain mesh of several devices has no processes to run them...
+    with pytest.raises(NotImplementedError, match="multi-device.*torch.distributed.run.*spawn"):
         big.device
+    # ... a process group per device does: each rank's mesh, its own device.
+    from tests.test_torch_sharding import mesh_rank
+    from vcoder_tpu_torch.parallel import launch
+
+    got = launch.spawn(mesh_rank, 4, {"data": 2}, timeout_s=120)
+    assert got == [({"data": 2, "fsdp": 2, "model": 1}, "cpu", True)] * 4
 
 
 def test_make_mesh_needs_cuda_unless_given_devices(monkeypatch):

@@ -284,8 +284,25 @@ def test_spec_fused_mixed_temperature(setup):
 
 
 def test_mesh_still_raises(setup):
+    """A mesh of two devices without a process group still raises; over a
+    spawned group of two ranks the engine serves the one-device tokens."""
     class Mesh:
         size = 2
 
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="mesh.*torch.distributed.run"):
         TEngine(setup["tcfg"], setup["tp"], device="cpu", mesh=Mesh())
+    from tests.test_torch_sharding import engine_rank, tiny_params
+    from vcoder_tpu_torch.parallel import launch
+
+    cfg, params = tiny_params()
+    S = cfg.vision.image_size
+    px = np.random.RandomState(2).randn(1, S, S, 3).astype(np.float32)
+    reqs = [([1, 10 + i, 11, -200, -400, -300, 12, 13 + i], px, 5) for i in range(3)]
+    one = TEngine(cfg, params, max_batch=2, max_len=256, attn_impl="xla", device="cpu",
+                  kv_quant=True)
+    rids = [one.add_request(ids, images=p, segs=p, depths=p, max_new_tokens=n)
+            for ids, p, n in reqs]
+    want = one.run()
+    ranks = launch.spawn(engine_rank, 2, "slot", (2, 1, 1), reqs,
+                         {"max_batch": 2, "kv_quant": True}, timeout_s=120)
+    assert ranks == [[want[r] for r in rids]] * 2

@@ -11,9 +11,10 @@ f32; the first step's loss must equal JAX's (``--mesh-data 1 --mesh-fsdp 1
 --mesh-model 1``) within 2e-5 relative (two f32 implementations; the LoRA
 stage's B matrices start at zero, so its other A draws do not move the
 first loss). ``final/`` and ``adapters.safetensors`` must load in both
-packages; a mesh product above 1 raises, with or without
-``--offload-opt-state`` (the offload on one device is
-``test_torch_offload.py``'s).
+packages; outside torchrun a mesh product above 1 raises a ``ValueError``
+naming torchrun, with or without ``--offload-opt-state`` (the offload on
+one device is ``test_torch_offload.py``'s; the stage under a process group
+``test_torch_sharded_train.py``'s).
 """
 
 import functools
@@ -173,8 +174,10 @@ def test_resume_continues_from_the_step_checkpoint(data, f32, tmp_path, capsys):
                                    ["--mesh-fsdp", "2", "--mesh-model", "1"],
                                    ["--mesh-model", "4"]])
 def test_multi_device_flags_raise(data, tmp_path, flags):
+    """Outside torchrun a mesh product above 1 raises, naming torchrun (the
+    stage under a process group: ``test_torch_sharded_train.py``)."""
     argv = _argv(data, "vcoder_ds_llava", [], str(tmp_path / "out")) + flags
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+    with pytest.raises(ValueError, match="one process per device.*torch.distributed.run"):
         tdrv.run_stage("vcoder_ds", tdrv.build_arg_parser().parse_args(argv))
     assert not os.path.exists(tmp_path / "out")
 

@@ -355,14 +355,23 @@ def test_initialize_missing_modules_matches_jax_structure():
 
 
 def test_multi_device_offload_and_cached_remat_raise(setup):
-    """An opt-state offload over a mesh above one device raises (the
-    multi-device slice; one device is ``test_torch_offload.py``'s), and so
-    does remat with a KV cache."""
+    """An opt-state offload over a plain mesh of two devices raises (one
+    device is ``test_torch_offload.py``'s; a process group places each
+    rank's shards), placements on two devices within one process raise, and
+    so does remat with a KV cache."""
     from vcoder_tpu_torch.parallel import Placement, host_shardings, make_mesh
 
     _, tcfg, _, _, _ = setup
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(NotImplementedError, match="multi-device.*torch.distributed.run"):
         host_shardings({"mu/x": torch.zeros(2)}, make_mesh(["cpu", "cpu"]))
+    # Over a spawned group each rank places its own shard on the host.
+    from tests.test_torch_sharding import host_shardings_rank
+    from vcoder_tpu_torch.parallel import launch
+
+    got = launch.spawn(host_shardings_rank, 2, timeout_s=120)
+    for r, (placements, shard, where) in enumerate(got):
+        assert placements == {"mu/x": ("cpu", "unpinned_host"), "count": ("cpu", "device")}
+        assert shard == [4.0 * r + i for i in range(4)] and where == "cpu"
     two = {"mu/a": Placement(torch.device("cpu"), "device"),
            "mu/b": Placement(torch.device("cuda", 1), "device")}
     with pytest.raises(NotImplementedError, match="one device"):

@@ -170,19 +170,39 @@ def test_prefetch_thread_is_joined(data, tmp_path):
 
 
 def test_trainer_multi_device_mesh_raises(data, tmp_path):
-    """A mesh above one device raises, with or without the opt-state
-    offload (the multi-device slice; a one-device mesh and the offload are
-    ``test_torch_offload.py``'s), and so do params off the device."""
+    """A plain mesh of two devices raises, with or without the opt-state
+    offload (a one-device mesh and the offload are ``test_torch_offload.py``'s),
+    and so do params off the device; over a spawned group of two ranks the
+    trainer's steps are the one-device steps."""
     from vcoder_tpu_torch.parallel import make_mesh
 
     _, tcfg, ds, _, params = data
     p = from_jax_params(params, tcfg, device="cpu")
     two = make_mesh(["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(NotImplementedError, match="multi-device.*torch.distributed.run"):
         Trainer(tcfg, p, ds, _args(TrainArgs, tmp_path), mesh=two, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(NotImplementedError, match="multi-device.*torch.distributed.run"):
         Trainer(tcfg, p, ds, _args(TrainArgs, tmp_path, offload_opt_state=True), mesh=two,
                 device="cpu")
+    # Over a spawned group of two ranks (1, 2, 1) the trainer takes the
+    # one-device steps, resident or offloaded.
+    import chip_smoke
+    from tests.test_torch_sharding import tiny_params, trainer_rank
+    from vcoder_tpu_torch.parallel import launch
+    from vcoder_tpu_torch.train.step import trainable_leaves
+
+    cfg, tp = tiny_params()
+    one = Trainer(cfg, tp, chip_smoke.DSSamples(8, cfg.vision.image_size),
+                  _args(TrainArgs, tmp_path, per_device_train_batch_size=2,
+                        learning_rate=1e-2, save_steps=10), device="cpu")
+    want = [h["loss"] for h in one.train(max_steps=2)]
+    for offload in (False, True):
+        for losses, leaves in launch.spawn(trainer_rank, 2, offload,
+                                           str(tmp_path / f"mesh-{offload}"), timeout_s=120):
+            np.testing.assert_allclose(losses, want, rtol=1e-5)
+            for path, t in trainable_leaves(one.params, "vcoder_ds").items():
+                np.testing.assert_allclose(leaves[path], t.detach().numpy(), rtol=1e-4,
+                                           atol=1e-6, err_msg=path)
     with pytest.raises(ValueError, match="params lie off"):
         Trainer(tcfg, {**p, "vcoder_lm_emb": p["vcoder_lm_emb"].to("meta")}, ds,
                 _args(TrainArgs, tmp_path), device="cpu")

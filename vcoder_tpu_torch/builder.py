@@ -150,14 +150,21 @@ def load_pretrained_model(
     *,
     dtype=torch.bfloat16,
     tokenizer=None,
+    place=None,
 ):
     """Load a local HF-format VCoder/LLaVA checkpoint directory onto
-    ``device``."""
+    ``device``. ``place(path, leaf)`` takes each leaf as it reaches the
+    device (over a mesh, ``parallel.leaf_sharder``: a rank keeps its shards
+    and holds one whole leaf at a time)."""
     dev = resolve_device(device)
+    if place is not None and (load_8bit or load_4bit):
+        raise NotImplementedError("quantized weights over a mesh belong to the port's next "
+                                  "multi-device slice")
     if model_name is None:
         model_name = get_model_name_from_path(model_path)
     if model_base is not None and "lora" in model_name.lower():
-        cfg, params = load_lora_checkpoint(model_path, model_base, dtype=dtype, device=dev)
+        cfg, params = load_lora_checkpoint(model_path, model_base, dtype=dtype, device=dev,
+                                           place=place)
     elif model_base is not None:
         overlay = {}
         for k, v in load_state(model_path).items():
@@ -167,9 +174,10 @@ def load_pretrained_model(
                 k = "model." + k
             overlay[k] = v
         cfg, params = load_hf_checkpoint(model_base, dtype=dtype, device=dev,
-                                         state_overlay=overlay, config_dir=model_path)
+                                         state_overlay=overlay, config_dir=model_path,
+                                         place=place)
     else:
-        cfg, params = load_hf_checkpoint(model_path, dtype=dtype, device=dev)
+        cfg, params = load_hf_checkpoint(model_path, dtype=dtype, device=dev, place=place)
     if load_8bit or load_4bit:
         params = quantize_params(params, bits=8 if load_8bit else 4)
 

@@ -80,7 +80,24 @@ def read_safetensors(path: str) -> StateDict:
 def write_safetensors(path: str, state: StateDict) -> None:
     """Write CPU-copyable tensors to a .safetensors file. The header comes
     from the shapes and dtypes alone; then each tensor is copied to the host
-    and written in turn, so the host holds one tensor's bytes at a time."""
+    and written in turn, so the host holds one tensor's bytes at a time.
+
+    With DTensors among the tensors (a tree sharded over a distributed mesh)
+    every rank of the group must call this: each DTensor is gathered in turn
+    and rank 0 alone writes it, so no rank holds more than one whole tensor;
+    the call returns on every rank once the file is complete."""
+    from torch.distributed.tensor import DTensor
+
+    sharded = any(isinstance(t, DTensor) for t in state.values())
+    if sharded:
+        import torch.distributed as dist
+
+        if dist.get_rank() != 0:
+            for name in sorted(state):
+                if isinstance(state[name], DTensor):
+                    state[name].detach().full_tensor()
+            dist.barrier()
+            return
     names = sorted(state)
     header, offset = {}, 0
     for name in names:
@@ -99,8 +116,12 @@ def write_safetensors(path: str, state: StateDict) -> None:
         f.write(hdr)
         for name in names:
             t = state[name].detach()
+            if isinstance(t, DTensor):
+                t = t.full_tensor()
             if t.numel():
                 f.write(t.to("cpu").contiguous().reshape(-1).view(torch.uint8).numpy())
+    if sharded:
+        dist.barrier()
 
 
 def load_state(model_dir: str) -> StateDict:
@@ -311,10 +332,15 @@ def export_llama(params: dict, prefix: str = "model.") -> StateDict:
 
 
 def export_clip(params: dict, cfg: VisionConfig, prefix: str) -> StateDict:
+    from torch.distributed.tensor import DTensor
+
     D, P, C = cfg.hidden_size, cfg.patch_size, cfg.num_channels
+    patch = params["patch_embedding"]
+    if isinstance(patch, DTensor):  # a sharded tree being written: DTensor has no such view
+        patch = patch.full_tensor()
     out: StateDict = {
         prefix + "embeddings.class_embedding": params["class_embedding"],
-        prefix + "embeddings.patch_embedding.weight": _t(params["patch_embedding"]).reshape(D, C, P, P),
+        prefix + "embeddings.patch_embedding.weight": _t(patch).reshape(D, C, P, P),
         prefix + "embeddings.position_embedding.weight": params["position_embedding"],
         prefix + "pre_layrnorm.weight": params["pre_layernorm"]["scale"],
         prefix + "pre_layrnorm.bias": params["pre_layernorm"]["bias"],
@@ -356,10 +382,15 @@ def export_vcoder(params: dict, cfg: VCoderConfig) -> StateDict:
 
 def save_pretrained(model_dir: str, params: dict, cfg: VCoderConfig) -> None:
     """Write ``config.json`` + ``model.safetensors``, loadable by
-    :func:`load_hf_checkpoint` and by the JAX package's loader."""
-    os.makedirs(model_dir, exist_ok=True)
-    with open(os.path.join(model_dir, "config.json"), "w") as f:
-        json.dump(cfg.to_hf_config(), f, indent=2)
+    :func:`load_hf_checkpoint` and by the JAX package's loader. A tree
+    sharded over a distributed mesh is written by rank 0, leaf by leaf
+    (:func:`write_safetensors`); every rank calls this."""
+    from vcoder_tpu_torch.parallel.mesh import rank_zero
+
+    if rank_zero():
+        os.makedirs(model_dir, exist_ok=True)
+        with open(os.path.join(model_dir, "config.json"), "w") as f:
+            json.dump(cfg.to_hf_config(), f, indent=2)
     write_safetensors(os.path.join(model_dir, "model.safetensors"), export_vcoder(params, cfg))
 
 
@@ -379,10 +410,21 @@ def _map_tensors(tree, fn):
     return fn(tree)
 
 
-def _place(params, dtype, dev):
-    return _map_tensors(
-        params, lambda t: t.to(device=dev, dtype=dtype if dtype is not None else t.dtype)
-    )
+def _place(params, dtype, dev, place=None, prefix: str = ""):
+    """Every leaf on ``dev`` in ``dtype``; with ``place(path, leaf)`` (over a
+    mesh, ``parallel.leaf_sharder``) each leaf goes through it as soon as it
+    is on ``dev``, before the next one is moved."""
+    def put(t):
+        return t.to(device=dev, dtype=dtype if dtype is not None else t.dtype)
+
+    if place is None:
+        return _map_tensors(params, put)
+    if isinstance(params, dict):
+        return {k: _place(v, dtype, dev, place, f"{prefix}/{k}" if prefix else k)
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [_place(v, dtype, dev, place, f"{prefix}/{i}") for i, v in enumerate(params)]
+    return place(prefix, put(params))
 
 
 def _read_config(model_dir: str) -> VCoderConfig:
@@ -391,22 +433,22 @@ def _read_config(model_dir: str) -> VCoderConfig:
 
 
 def load_hf_checkpoint(model_dir: str, *, dtype=torch.bfloat16, device="cuda",
-                       state_overlay: StateDict = None, config_dir: str = None):
+                       state_overlay: StateDict = None, config_dir: str = None, place=None):
     """Load a local HF-format VCoder/LLaVA checkpoint directory onto
     ``device`` (``dtype=None`` keeps the stored dtypes). ``state_overlay``
     entries replace the loaded state before import (an adapter over a base);
-    ``config_dir`` reads config.json from another directory. Returns
-    (config, params)."""
+    ``config_dir`` reads config.json from another directory; ``place``: see
+    :func:`_place`. Returns (config, params)."""
     dev = resolve_device(device)
     cfg = _read_config(config_dir or model_dir)
     state = load_state(model_dir)
     if state_overlay:
         state.update(state_overlay)
-    return cfg, _place(import_vcoder(state, cfg), dtype, dev)
+    return cfg, _place(import_vcoder(state, cfg), dtype, dev, place)
 
 
 def load_lora_checkpoint(model_path: str, model_base: str, *, dtype=torch.bfloat16,
-                         device="cuda"):
+                         device="cuda", place=None):
     """A PEFT-format LoRA checkpoint directory over a base, merged (the
     reference's LoRA path, model/builder.py:44-81): the base's weights, the
     ``non_lora_trainables.bin`` overlay with its prefix rules, then
@@ -440,7 +482,7 @@ def load_lora_checkpoint(model_path: str, model_base: str, *, dtype=torch.bfloat
         w = state[w_name]
         delta = scale * (b.float() @ a.float())  # [out, r] @ [r, in]
         state[w_name] = (w.float() + delta).to(w.dtype)
-    return cfg, _place(import_vcoder(state, cfg), dtype, dev)
+    return cfg, _place(import_vcoder(state, cfg), dtype, dev, place)
 
 
 def _is_jax_leaf(leaf, name: str, fields) -> bool:

@@ -20,6 +20,14 @@
   that autograd differentiates (a stage that trains it, ``"all"``: the fused
   kernel has no backward) run the unfused blocks through the attention
   dispatcher, which is plain differentiable torch at the tower's head dim.
+* Over a distributed mesh the tower takes the unfused blocks, as JAX's
+  ``clip.py:138-140`` does (so K2 and K9 are not launched there): each
+  layer's weights are gathered whole at use (``parallel/spmd.py``) and the
+  tower runs replicated over ``model`` on the rank's rows. It is 0.3 B of
+  VCoder-DS-7B's 7.3 B parameters; split over ``model``, any reordering of
+  its sums moves the decoder's logits by ~0.05 relative L2 at random
+  weights (``scripts/row_split_check.py``); replicated, it computes what
+  the one-device unfused tower computes on the same rows.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 from vcoder_tpu_torch.config import VisionConfig
 from vcoder_tpu_torch.ops.attention import multi_head_attention
 from vcoder_tpu_torch.ops.quant import qmatmul as qm
+from vcoder_tpu_torch.parallel import spmd
 from vcoder_tpu_torch.ops.vit_attention import (
     fused_block_attention,
     fused_block_mlp,
@@ -39,45 +48,56 @@ from vcoder_tpu_torch.ops.vit_attention import (
 #: Run each fused block's MLP half through ``fused_block_mlp``; read by
 #: ``clip_encode`` at call time.
 FUSE_MLP_DEFAULT = False
+#: Let eligible towers take the fused attention-block route; read by
+#: ``clip_encode`` at call time. False sends every tower through the unfused
+#: blocks, the route a mesh takes (a one-device reference for a mesh's
+#: numbers sets it).
+FUSED_BLOCKS = True
 
 
 def init_clip_params(
-    generator: torch.Generator, cfg: VisionConfig, *, dtype=torch.float32, device="cpu"
+    generator: torch.Generator, cfg: VisionConfig, *, dtype=torch.float32, device="cpu",
+    place=None,
 ) -> dict:
+    """Random-normal (0.02) weights, unit LayerNorm scales and zero biases;
+    ``place(path, leaf)``, when given, takes each leaf as it is made."""
     L, D, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     P, C = cfg.patch_size, cfg.num_channels
+    put = place or (lambda _path, t: t)
 
-    def nrm(*shape):
-        return torch.randn(shape, generator=generator, dtype=dtype, device=device).mul_(0.02)
+    def nrm(path, *shape):
+        return put(path, torch.randn(shape, generator=generator, dtype=dtype,
+                                     device=device).mul_(0.02))
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=device)
+    def ones(path, *shape):
+        return put(path, torch.ones(shape, dtype=dtype, device=device))
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
+    def zeros(path, *shape):
+        return put(path, torch.zeros(shape, dtype=dtype, device=device))
 
     return {
-        "class_embedding": nrm(D),
-        "patch_embedding": nrm(P * P * C, D),
-        "position_embedding": nrm(cfg.num_positions, D),
-        "pre_layernorm": {"scale": ones(D), "bias": zeros(D)},
+        "class_embedding": nrm("class_embedding", D),
+        "patch_embedding": nrm("patch_embedding", P * P * C, D),
+        "position_embedding": nrm("position_embedding", cfg.num_positions, D),
+        "pre_layernorm": {"scale": ones("pre_layernorm/scale", D),
+                          "bias": zeros("pre_layernorm/bias", D)},
         "layers": {
-            "ln1_scale": ones(L, D),
-            "ln1_bias": zeros(L, D),
-            "ln2_scale": ones(L, D),
-            "ln2_bias": zeros(L, D),
-            "q_proj": nrm(L, D, D),
-            "q_bias": zeros(L, D),
-            "k_proj": nrm(L, D, D),
-            "k_bias": zeros(L, D),
-            "v_proj": nrm(L, D, D),
-            "v_bias": zeros(L, D),
-            "out_proj": nrm(L, D, D),
-            "out_bias": zeros(L, D),
-            "fc1": nrm(L, D, I),
-            "fc1_bias": zeros(L, I),
-            "fc2": nrm(L, I, D),
-            "fc2_bias": zeros(L, D),
+            "ln1_scale": ones("layers/ln1_scale", L, D),
+            "ln1_bias": zeros("layers/ln1_bias", L, D),
+            "ln2_scale": ones("layers/ln2_scale", L, D),
+            "ln2_bias": zeros("layers/ln2_bias", L, D),
+            "q_proj": nrm("layers/q_proj", L, D, D),
+            "q_bias": zeros("layers/q_bias", L, D),
+            "k_proj": nrm("layers/k_proj", L, D, D),
+            "k_bias": zeros("layers/k_bias", L, D),
+            "v_proj": nrm("layers/v_proj", L, D, D),
+            "v_bias": zeros("layers/v_bias", L, D),
+            "out_proj": nrm("layers/out_proj", L, D, D),
+            "out_bias": zeros("layers/out_bias", L, D),
+            "fc1": nrm("layers/fc1", L, D, I),
+            "fc1_bias": zeros("layers/fc1_bias", L, I),
+            "fc2": nrm("layers/fc2", L, I, D),
+            "fc2_bias": zeros("layers/fc2_bias", L, D),
         },
     }
 
@@ -113,7 +133,7 @@ def _num_blocks(cfg: VisionConfig) -> int:
 
 
 def _layer(params: dict, l: int) -> dict:
-    return {k: v[l] for k, v in params["layers"].items()}
+    return spmd.layer(params["layers"], l)
 
 
 def _mlp(x, lp, eps):
@@ -134,7 +154,8 @@ def _fused_eligible(params: dict, attn_impl: str, differentiate: bool,
     lp = params["layers"]
     names = ("q_proj", "k_proj", "v_proj", "out_proj") + (("fc1", "fc2") if fuse_mlp else ())
     plain = all(isinstance(lp[k], torch.Tensor) for k in names)
-    return attn_impl == "auto" and plain and not differentiate
+    return (attn_impl == "auto" and plain and not differentiate and FUSED_BLOCKS
+            and spmd.mesh() is None)
 
 
 def clip_encode(
@@ -154,13 +175,12 @@ def clip_encode(
     D = cfg.hidden_size
     eps = cfg.layer_norm_eps
 
-    x = qm(patchify(images, cfg.patch_size), params["patch_embedding"])
-    cls = params["class_embedding"].to(x.dtype).expand(B, 1, D)
+    x = qm(patchify(images, cfg.patch_size), spmd.weight(params["patch_embedding"], None))
+    cls = spmd.weight(params["class_embedding"]).to(x.dtype).expand(B, 1, D)
     x = torch.cat([cls, x], dim=1)
-    x = x + params["position_embedding"][None]
-    x = layer_norm(
-        x, params["pre_layernorm"]["scale"], params["pre_layernorm"]["bias"], eps
-    )
+    x = x + spmd.weight(params["position_embedding"], None)[None]
+    pre = params["pre_layernorm"]
+    x = layer_norm(x, spmd.weight(pre["scale"]), spmd.weight(pre["bias"]), eps)
 
     n_blocks = _num_blocks(cfg)
     fuse_mlp = FUSE_MLP_DEFAULT

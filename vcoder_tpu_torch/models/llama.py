@@ -11,8 +11,15 @@
 * :func:`llama_paged_decode` / :func:`llama_paged_verify` (``:392,576``) run
   the same layers over KV page pools (``ops/paged_attention.py``), bf16 or
   int8 with scales from :func:`_kv_quantize` (``:178``); the pools are
-  written in place. With ``ops.paged_attention.FUSED_APPEND`` (read at call
-  time) a decode step and a verify window of at most 16 tokens append and
+  written in place.
+* Over a distributed mesh (``parallel/spmd.py``) each layer's weights are
+  gathered over ``data x fsdp`` at use and its attention heads and MLP
+  width split over ``model`` (Megatron tensor parallelism); a cache or page
+  pool holds this rank's rows and heads, the step's rows are sliced to
+  them and the hidden states gathered back, and the page table's global
+  ids are rebased to the rank's pools once a step before the same paged
+  kernels run (JAX's ``sharded_*`` wrappers, ``:437-470,638-680``).
+  With ``ops.paged_attention.FUSED_APPEND`` (read at call time) a decode step and a verify window of at most 16 tokens append and
   attend in one kernel per layer (``:507-540,628``); otherwise the writers
   append and the paged kernel attends.
 * ``llama_forward(remat=...)`` (``:203,347-357``) checkpoints each layer of
@@ -35,6 +42,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Optional, Tuple
@@ -46,35 +54,43 @@ from torch.utils import checkpoint as ckpt
 from vcoder_tpu_torch.config import TextConfig
 from vcoder_tpu_torch.ops.attention import multi_head_attention
 from vcoder_tpu_torch.ops.quant import qmatmul as qm
+from vcoder_tpu_torch.parallel import spmd
 
 
 def init_llama_params(
-    generator: torch.Generator, cfg: TextConfig, *, dtype=torch.float32, device="cpu"
+    generator: torch.Generator, cfg: TextConfig, *, dtype=torch.float32, device="cpu",
+    place=None,
 ) -> dict:
     """Random-normal (0.02) init, layer-stacked, sampled directly in ``dtype``
-    on ``device`` (no f32 intermediate at 7B)."""
+    on ``device`` (no f32 intermediate at 7B). ``place(path, leaf)``, when
+    given, takes each leaf as it is drawn (``parallel.leaf_sharder``)."""
     L, D, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     H, KH, HD = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     V = cfg.vocab_size
+    put = place or (lambda _path, t: t)
 
-    def nrm(*shape):
-        return torch.randn(shape, generator=generator, dtype=dtype, device=device).mul_(0.02)
+    def nrm(path, *shape):
+        return put(path, torch.randn(shape, generator=generator, dtype=dtype,
+                                     device=device).mul_(0.02))
+
+    def ones(path, *shape):
+        return put(path, torch.ones(shape, dtype=dtype, device=device))
 
     return {
-        "embed_tokens": nrm(V, D),
+        "embed_tokens": nrm("embed_tokens", V, D),
         "layers": {
-            "input_layernorm": torch.ones((L, D), dtype=dtype, device=device),
-            "post_attention_layernorm": torch.ones((L, D), dtype=dtype, device=device),
-            "q_proj": nrm(L, D, H * HD),
-            "k_proj": nrm(L, D, KH * HD),
-            "v_proj": nrm(L, D, KH * HD),
-            "o_proj": nrm(L, H * HD, D),
-            "gate_proj": nrm(L, D, I),
-            "up_proj": nrm(L, D, I),
-            "down_proj": nrm(L, I, D),
+            "input_layernorm": ones("layers/input_layernorm", L, D),
+            "post_attention_layernorm": ones("layers/post_attention_layernorm", L, D),
+            "q_proj": nrm("layers/q_proj", L, D, H * HD),
+            "k_proj": nrm("layers/k_proj", L, D, KH * HD),
+            "v_proj": nrm("layers/v_proj", L, D, KH * HD),
+            "o_proj": nrm("layers/o_proj", L, H * HD, D),
+            "gate_proj": nrm("layers/gate_proj", L, D, I),
+            "up_proj": nrm("layers/up_proj", L, D, I),
+            "down_proj": nrm("layers/down_proj", L, I, D),
         },
-        "norm": torch.ones((D,), dtype=dtype, device=device),
-        "lm_head": nrm(D, V),
+        "norm": ones("norm", D),
+        "lm_head": nrm("lm_head", D, V),
     }
 
 
@@ -114,7 +130,9 @@ class KVCache:
     k, v: [L, B, S_max, KH, HD]; kv_mask: [B, S_max] validity of each slot;
     length: [B] populated slots per row. Quantized (``k_scale`` given): k/v
     hold int8 and k_scale/v_scale the f32 per-vector scales [L, B, S_max, KH,
-    1]; values dequantize at the attention read.
+    1]; values dequantize at the attention read. Over a distributed mesh
+    k/v (and their scales) hold this rank's rows and KV heads; kv_mask and
+    length cover every row on every rank.
     """
 
     k: torch.Tensor
@@ -131,13 +149,17 @@ class KVCache:
     @staticmethod
     def create(
         cfg: TextConfig, batch: int, max_len: int, *, dtype=torch.float32, device="cpu",
-        quantized: bool = False,
+        quantized: bool = False, rows: Optional[int] = None,
     ) -> "KVCache":
-        L, KH, HD = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+        """``rows``: the rows k/v hold (default ``batch``; this rank's share
+        of them over a mesh). KV heads are this rank's share."""
+        L, HD = cfg.num_layers, cfg.head_dim
+        KH = local_kv_heads(cfg)
         kv_dtype = torch.int8 if quantized else dtype
+        n = batch if rows is None else rows
 
         def zeros(last, dt):
-            return torch.zeros((L, batch, max_len, KH, last), dtype=dt, device=device)
+            return torch.zeros((L, n, max_len, KH, last), dtype=dt, device=device)
 
         return KVCache(
             k=zeros(HD, kv_dtype),
@@ -149,33 +171,58 @@ class KVCache:
         )
 
 
+def local_kv_heads(cfg: TextConfig) -> int:
+    """The KV heads a cache or page pool holds on this rank."""
+    return spmd.local_heads(cfg.num_kv_heads, (cfg.num_heads, cfg.num_kv_heads))
+
+
+def layer_weights(layers: dict, l: int, cfg: TextConfig) -> dict:
+    """Layer ``l``'s weights as compute tensors (``parallel/spmd.py``)."""
+    return spmd.layer(layers, l, heads=(cfg.num_heads, cfg.num_kv_heads),
+                      width=cfg.intermediate_size)
+
+
 def _layer_qkv(lp: dict, cfg: TextConfig, x: torch.Tensor, cos, sin):
     """RMSNorm, q/k/v projections and RoPE of one layer: (q, k, v) as
-    [B, T, H|KH, HD]."""
+    [B, T, H|KH, HD] (this rank's heads over a mesh)."""
     B, T, _ = x.shape
-    H, KH, HD = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    HD = cfg.head_dim
     h = rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps)
-    q = apply_rope(qm(h, lp["q_proj"]).reshape(B, T, H, HD), cos, sin)
-    k = apply_rope(qm(h, lp["k_proj"]).reshape(B, T, KH, HD), cos, sin)
-    v = qm(h, lp["v_proj"]).reshape(B, T, KH, HD)
+    if lp.get("tp_attn"):
+        h = spmd.copy_to_model(h)
+    q = apply_rope(qm(h, lp["q_proj"]).reshape(B, T, -1, HD), cos, sin)
+    k = apply_rope(qm(h, lp["k_proj"]).reshape(B, T, -1, HD), cos, sin)
+    v = qm(h, lp["v_proj"]).reshape(B, T, -1, HD)
     return q, k, v
 
 
 def _layer_out(lp: dict, cfg: TextConfig, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     """Out-projection + residual, then the SwiGLU MLP + residual."""
     B, T = attn.shape[:2]
-    x = x + qm(attn.reshape(B, T, -1), lp["o_proj"])
+    a = attn.reshape(B, T, -1)
+    x = x + (spmd.row_parallel(a, lp["o_proj"], qm) if lp.get("tp_attn")
+             else qm(a, lp["o_proj"]))
     h = rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-    return x + qm(F.silu(qm(h, lp["gate_proj"])) * qm(h, lp["up_proj"]), lp["down_proj"])
+    if lp.get("tp_mlp"):
+        h = spmd.copy_to_model(h)
+    a = F.silu(qm(h, lp["gate_proj"])) * qm(h, lp["up_proj"])
+    return x + (spmd.row_parallel(a, lp["down_proj"], qm) if lp.get("tp_mlp")
+                else qm(a, lp["down_proj"]))
 
 
-def _dense_layer(lp, cfg, x, cos, sin, attn_mask, position_ids, attn_impl):
-    """One decoder layer over the T positions alone (no cache)."""
-    q, k, v = _layer_qkv(lp, cfg, x, cos, sin)
-    attn_out = multi_head_attention(
-        q, k, v, causal=True, q_positions=position_ids, kv_mask=attn_mask, impl=attn_impl
-    )
-    return _layer_out(lp, cfg, x, attn_out)
+def _dense_layer(layers, l, cfg, x, cos, sin, attn_mask, position_ids, attn_impl, spmd_state):
+    """One decoder layer over the T positions alone (no cache); the layer's
+    weights are gathered inside, so a checkpointed layer gathers them again
+    in the backward instead of keeping them. ``spmd_state``
+    (``spmd.capture()``) is re-entered, as the recompute may run on another
+    thread."""
+    with spmd.restore(spmd_state):
+        lp = layer_weights(layers, l, cfg)
+        q, k, v = _layer_qkv(lp, cfg, x, cos, sin)
+        attn_out = multi_head_attention(
+            q, k, v, causal=True, q_positions=position_ids, kv_mask=attn_mask, impl=attn_impl
+        )
+        return _layer_out(lp, cfg, x, attn_out)
 
 
 # What ``remat="dots"`` keeps: the outputs of the 2-D products (every
@@ -224,11 +271,15 @@ def llama_forward(
     Returns (hidden [B, T, D] after the final norm, the cache or None).
     """
     B, T, D = inputs_embeds.shape
-    cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
-
     use_cache = cache is not None
     if remat and use_cache:
         raise ValueError("remat applies to the cache-free path only")
+    # A cache holding this rank's rows of the batch: the step runs on them.
+    rows = slice(None)
+    split = spmd.mesh() is not None and use_cache and cache.k.shape[1] != B
+    if split:
+        rows = spmd.row_slice(B)
+    cos, sin = rope_cos_sin(position_ids[rows], cfg.head_dim, cfg.rope_theta)
     if use_cache:
         if write_offset is None:
             write_offset = cache.length
@@ -239,18 +290,23 @@ def llama_forward(
         new_kv_mask = cache.kv_mask | (
             (pos_s >= write_offset[:, None]) & (pos_s < (write_offset + n_valid)[:, None])
         )
-        rows_ix = torch.arange(B, device=inputs_embeds.device)[:, None]
-        write_pos = write_offset[:, None] + torch.arange(T, device=inputs_embeds.device)[None, :]
+        n_rows = cache.k.shape[1]
+        rows_ix = torch.arange(n_rows, device=inputs_embeds.device)[:, None]
+        write_pos = (write_offset[rows][:, None]
+                     + torch.arange(T, device=inputs_embeds.device)[None, :])
+        kv_mask_at = new_kv_mask[rows]
 
     context_fn = ckpt.noop_context_fn
     if remat == "dots":
         context_fn = functools.partial(ckpt.create_selective_checkpoint_contexts, _dots_policy)
-    x = inputs_embeds
+    x = inputs_embeds[rows]
+    pos_at = position_ids[rows]
+    spmd_state = spmd.capture()
     L = params["layers"]["q_proj"].shape[0]
     for l in range(L):
-        lp = {k: v[l] for k, v in params["layers"].items()}
         if not use_cache:
-            args = (lp, cfg, x, cos, sin, attn_mask, position_ids, attn_impl)
+            args = (params["layers"], l, cfg, x, cos, sin, attn_mask, position_ids, attn_impl,
+                    spmd_state)
             if remat:
                 x = ckpt.checkpoint(
                     _dense_layer, *args, use_reentrant=False, context_fn=context_fn
@@ -258,6 +314,7 @@ def llama_forward(
             else:
                 x = _dense_layer(*args)
             continue
+        lp = layer_weights(params["layers"], l, cfg)
         q, k, v = _layer_qkv(lp, cfg, x, cos, sin)
         k_sc = v_sc = None
         if cache.quantized:
@@ -282,16 +339,18 @@ def llama_forward(
             cache.k[l][rows_ix, write_pos] = k.to(cache.k.dtype)
             cache.v[l][rows_ix, write_pos] = v.to(cache.v.dtype)
             k_at, v_at = cache.k[l], cache.v[l]
-        attn_out = multi_head_attention(
-            q, k_at, v_at, causal=True, q_positions=position_ids, kv_mask=new_kv_mask,
-            impl=attn_impl, k_scale=k_sc, v_scale=v_sc,
-        )
+        with spmd.local_rows() if split else contextlib.nullcontext():
+            attn_out = multi_head_attention(
+                q, k_at, v_at, causal=True, q_positions=pos_at, kv_mask=kv_mask_at,
+                impl=attn_impl, k_scale=k_sc, v_scale=v_sc,
+            )
         x = _layer_out(lp, cfg, x, attn_out)
 
     new_cache = None
     if use_cache:
         new_cache = dataclasses.replace(cache, kv_mask=new_kv_mask, length=write_offset + n_valid)
-    return rms_norm(x, params["norm"], cfg.rms_norm_eps), new_cache
+    out = rms_norm(x, spmd.weight(params["norm"]), cfg.rms_norm_eps)
+    return (spmd.gather_rows(out) if split else out), new_cache
 
 
 # Largest speculative window the engines accept (``llama.py:82``): past it the
@@ -309,6 +368,22 @@ def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
+def _paged_rows(B: int, n_pages: int, page_table: torch.Tensor, *tensors):
+    """Over a distributed mesh: this rank's rows of ``page_table`` and of
+    each of ``tensors``, the table's global page ids rebased once to this
+    rank's pools of ``n_pages`` pages (a row shard's pages start at
+    ``row_index * n_pages``, ``paged_attention.py:448-470``). Returns (mesh
+    or None, the table the kernels read, the table the writers read -- its
+    ids clipped into the local pool, as JAX's writers clip them --, the
+    tensors)."""
+    m = spmd.mesh()
+    if m is None:
+        return None, page_table, page_table, list(tensors)
+    rows = spmd.row_slice(B)
+    table = page_table[rows] - m.row_index * n_pages
+    return m, table, table.clamp(0, n_pages - 1), [t[rows] for t in tensors]
+
+
 def llama_paged_decode(
     params: dict,
     cfg: TextConfig,
@@ -323,30 +398,34 @@ def llama_paged_decode(
     k_scale: Optional[torch.Tensor] = None,  # [L, n_pages, KH, page] f32
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One decode step over paged KV (``llama.py:392``, single device): each
+    """One decode step over paged KV (``llama.py:392``): each
     layer writes the step's K/V (int8 + scales when ``k_scale`` is given)
     into the row's current page and attends over ``lengths + active``
     tokens -- in one fused kernel with ``FUSED_APPEND``, else the writers
     then the paged kernel. The pools are updated IN PLACE; returns hidden
-    [B, 1, D] after the final norm."""
+    [B, 1, D] after the final norm. Over a distributed mesh the pools are
+    this rank's rows and heads and the table holds global page ids (module
+    note)."""
     from vcoder_tpu_torch.ops import paged_attention as pa
 
     B, T, _ = inputs_embeds.shape
     if T != 1:
         raise ValueError(f"decode takes one token per row, got {T}")
+    m, page_table, write_table, (inputs_embeds, positions, lengths, active) = _paged_rows(
+        B, k_pages.shape[1], page_table, inputs_embeds, positions, lengths, active)
     page = k_pages.shape[3]
     quantized = k_scale is not None
     fused = pa.FUSED_APPEND
     cos, sin = rope_cos_sin(positions[:, None], cfg.head_dim, cfg.rope_theta)
     pos = positions.long()
-    ids, valid = pa.lookup_pages(page_table, (pos // page)[:, None])
+    ids, valid = pa.lookup_pages(write_table, (pos // page)[:, None])
     row_pages = torch.where(valid, ids, 0)[:, 0]  # past the table: page 0, as JAX
     offsets = pos % page
     attn_lengths = lengths + active.to(lengths.dtype)
     x = inputs_embeds
     L = params["layers"]["q_proj"].shape[0]
     for l in range(L):
-        lp = {k: v[l] for k, v in params["layers"].items()}
+        lp = layer_weights(params["layers"], l, cfg)
         q, k, v = _layer_qkv(lp, cfg, x, cos, sin)
         if fused:
             # The token's K/V enter the kernel as operands: attended from
@@ -378,7 +457,8 @@ def llama_paged_decode(
                 q[:, 0], k_pages, v_pages, page_table, attn_lengths, l
             )
         x = _layer_out(lp, cfg, x, attn[:, None])
-    return rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    out = rms_norm(x, spmd.weight(params["norm"]), cfg.rms_norm_eps)
+    return out if m is None else spmd.gather_rows(out)
 
 
 def llama_paged_verify(
@@ -410,6 +490,8 @@ def llama_paged_verify(
     from vcoder_tpu_torch.ops import paged_attention as pa
 
     B, k, _ = inputs_embeds.shape
+    m, page_table, write_table, (inputs_embeds, positions, lengths, active) = _paged_rows(
+        B, k_pages.shape[1], page_table, inputs_embeds, positions, lengths, active)
     quantized = k_scale is not None
     use_fused = pa.FUSED_APPEND and k <= 16
     use_pages = page_aligned and not use_fused and k % k_pages.shape[3] == 0
@@ -420,7 +502,7 @@ def llama_paged_verify(
     x = inputs_embeds
     L = params["layers"]["q_proj"].shape[0]
     for l in range(L):
-        lp = {name: t[l] for name, t in params["layers"].items()}
+        lp = layer_weights(params["layers"], l, cfg)
         q, kk, v = _layer_qkv(lp, cfg, x, cos, sin)
         if use_fused:
             kw = dict(window=k)
@@ -436,28 +518,30 @@ def llama_paged_verify(
         elif quantized:
             kq, ks = _kv_quantize(kk)
             vq, vs = _kv_quantize(v)
-            append(k_pages, l, kq, positions, page_table, active)
-            append(v_pages, l, vq, positions, page_table, active)
-            append_s(k_scale, l, ks, positions, page_table, active)
-            append_s(v_scale, l, vs, positions, page_table, active)
+            append(k_pages, l, kq, positions, write_table, active)
+            append(v_pages, l, vq, positions, write_table, active)
+            append_s(k_scale, l, ks, positions, write_table, active)
+            append_s(v_scale, l, vs, positions, write_table, active)
             attn = pa.carry_paged_attention_multi_q8(
                 q, k_pages, v_pages, k_scale, v_scale, page_table, attn_lengths, l,
                 window=k,
             )
         else:
-            append(k_pages, l, kk, positions, page_table, active)
-            append(v_pages, l, v, positions, page_table, active)
+            append(k_pages, l, kk, positions, write_table, active)
+            append(v_pages, l, v, positions, write_table, active)
             attn = pa.carry_paged_attention_multi(
                 q, k_pages, v_pages, page_table, attn_lengths, l, window=k
             )
         x = _layer_out(lp, cfg, x, attn)
-    return rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    out = rms_norm(x, spmd.weight(params["norm"]), cfg.rms_norm_eps)
+    return out if m is None else spmd.gather_rows(out)
 
 
 def lm_head(params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    """[B, T, D] -> [B, T, V] logits in f32."""
-    return qm(hidden, params["lm_head"]).float()
+    """[B, T, D] -> [B, T, V] logits in f32 (the vocabulary split over
+    ``model`` on a mesh, the logits gathered)."""
+    return spmd.column_product(hidden, params["lm_head"], qm).float()
 
 
 def embed_tokens(params: dict, ids: torch.Tensor) -> torch.Tensor:
-    return params["embed_tokens"][ids]
+    return spmd.embed(params["embed_tokens"], ids)

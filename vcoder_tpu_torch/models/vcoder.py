@@ -33,6 +33,7 @@ from vcoder_tpu_torch.models import llama as llama_mod
 from vcoder_tpu_torch.models.projectors import apply_projector, init_projector_params
 from vcoder_tpu_torch.multimodal import SplicePlan
 from vcoder_tpu_torch.ops._kernels import needs_grad
+from vcoder_tpu_torch.parallel import spmd
 from vcoder_tpu_torch.tree import named_leaves
 
 
@@ -42,41 +43,51 @@ def init_vcoder_params(
     seed: int = 0,
     dtype=torch.bfloat16,
     device="cuda",
+    place=None,
 ) -> dict:
     """Random weights at ``cfg``'s full width, sampled directly in ``dtype``
     on ``device`` from a ``torch.Generator`` seeded with ``seed``. Raises when
-    ``device`` is CUDA and there is none."""
+    ``device`` is CUDA and there is none. ``place(path, leaf)``, when given,
+    takes each leaf as it is drawn, before the next (over a mesh,
+    ``parallel.leaf_sharder``: a rank holds its shards and one whole leaf)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return build_vcoder_params(cfg, gen, dtype=dtype, device=dev)
+    return build_vcoder_params(cfg, gen, dtype=dtype, device=dev, place=place)
 
 
-def build_vcoder_params(cfg: VCoderConfig, gen: torch.Generator, *, dtype, device) -> dict:
+def build_vcoder_params(cfg: VCoderConfig, gen: torch.Generator, *, dtype, device,
+                        place=None) -> dict:
     """The parameter tree of :func:`init_vcoder_params`, drawn from ``gen``
     on ``device`` as given (``"meta"`` gives the shapes alone)."""
     D_v, D_t = cfg.vision.hidden_size, cfg.text.hidden_size
     kw = dict(dtype=dtype, device=device)
+
+    def under(prefix):
+        return None if place is None else (lambda path, t: place(f"{prefix}/{path}", t))
+
     params = {
-        "lm": llama_mod.init_llama_params(gen, cfg.text, **kw),
-        "vision_tower": clip_mod.init_clip_params(gen, cfg.vision, **kw),
-        "mm_projector": init_projector_params(gen, cfg.mm_projector_type, D_v, D_t, **kw),
+        "lm": llama_mod.init_llama_params(gen, cfg.text, place=under("lm"), **kw),
+        "vision_tower": clip_mod.init_clip_params(gen, cfg.vision, place=under("vision_tower"),
+                                                  **kw),
+        "mm_projector": init_projector_params(gen, cfg.mm_projector_type, D_v, D_t,
+                                              place=under("mm_projector"), **kw),
     }
     if cfg.use_mm2_proj:
         params["mm2_projector"] = init_projector_params(
-            gen, cfg.mm_projector_type, D_v, D_t, **kw
+            gen, cfg.mm_projector_type, D_v, D_t, place=under("mm2_projector"), **kw
         )
     if cfg.use_seg:
         params["seg_projector"] = init_projector_params(
-            gen, cfg.seg_mm_projector_type, D_v, D_t, **kw
+            gen, cfg.seg_mm_projector_type, D_v, D_t, place=under("seg_projector"), **kw
         )
     if cfg.use_depth:
         params["depth_projector"] = init_projector_params(
-            gen, cfg.depth_mm_projector_type, D_v, D_t, **kw
+            gen, cfg.depth_mm_projector_type, D_v, D_t, place=under("depth_projector"), **kw
         )
     if cfg.use_vcoder_lm_emb:
         # An independent copy, as the reference clones it
-        # (vcoder_llava_arch.py:180).
+        # (vcoder_llava_arch.py:180); over a mesh its rule is the table's.
         params["vcoder_lm_emb"] = params["lm"]["embed_tokens"].clone()
     return params
 
@@ -195,7 +206,7 @@ def assemble_embeddings(
         if (use_vcoder_emb and "vcoder_lm_emb" in params)
         else params["lm"]["embed_tokens"]
     )
-    text_e = table[safe_ids]
+    text_e = spmd.embed(table, safe_ids)
     if vis_table is None:
         return text_e
     idx = vis_idx[:, :, None].expand(-1, -1, vis_table.shape[-1])
@@ -286,7 +297,10 @@ def train_forward(
     """Shifted cross-entropy over the label positions (``vcoder.py:320``,
     the reference's ``llava_llama.py:85-103``): the logits at t predict the
     label at t + 1; ``IGNORE_INDEX`` labels are masked; the mean is over the
-    valid labels, with a floor of 1. ``remat`` goes to ``llama_forward``."""
+    valid labels, with a floor of 1. ``remat`` goes to ``llama_forward``.
+    Over a distributed mesh with the batch's rows split
+    (``spmd.local_rows``), the mean's denominator counts every shard's
+    labels and the value is this rank's share of it."""
     vis_table = None
     if images is not None or segs is not None or depths is not None:
         vis_table = encode_vision(params, cfg, images, segs, depths, attn_impl=attn_impl)
@@ -314,8 +328,12 @@ def train_forward(
     safe_labels = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
     logp = F.log_softmax(logits[:, :-1], dim=-1)
     nll = -torch.gather(logp, -1, safe_labels[..., None])[..., 0]
-    denom = valid.sum().clamp_min(1)
-    return (nll * valid).sum() / denom
+    count = valid.sum()
+    if spmd.mesh() is not None and spmd.rows_are_local():
+        # This rank's rows: its share of the global mean (summed over the
+        # row shards, the loss; its gradient, this rank's partial sum).
+        count = spmd.sum_rows(count)
+    return (nll * valid).sum() / count.clamp_min(1)
 
 
 def plan_to_arrays(plan: SplicePlan, device="cuda", include_labels: bool = False) -> dict:

@@ -10,6 +10,13 @@
 
 Layout throughout: ``[batch, seq, heads, head_dim]``. Grouped-query
 attention passes fewer KV heads.
+
+Over a distributed mesh (``parallel/spmd.py``) the flash route is JAX's
+``sharded_flash_attention`` (``attention.py:180-231``): batch over ``data x
+fsdp``, heads over ``model``, one flash call per rank on its rows and
+heads, which the model code holds already as local tensors; a batch the
+row shards do not divide takes the plain route, as JAX's ``:156-168``
+does.
 """
 
 from __future__ import annotations
@@ -111,7 +118,14 @@ def multi_head_attention(
         impl = "xla"
     if impl == "auto":
         from vcoder_tpu_torch.ops.flash_attention import flash_attention
+        from vcoder_tpu_torch.parallel import spmd
 
+        m = spmd.mesh()
+        if m is not None and spmd.global_rows(q.shape[0]) % m.row_shards:
+            # JAX's sharded_flash_attention returns None: the plain route.
+            return xla_attention(
+                q, k, v, causal=causal, q_positions=q_positions, kv_mask=kv_mask
+            )
         return flash_attention(
             q, k, v, causal=causal, q_positions=q_positions, kv_mask=kv_mask
         )

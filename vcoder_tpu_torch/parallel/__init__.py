@@ -8,9 +8,15 @@ from vcoder_tpu_torch.parallel.mesh import (
 )
 from vcoder_tpu_torch.parallel.sharding import (
     Placement,
+    batch_sharding,
     device_shardings_like,
     host_shardings,
+    leaf_sharder,
     offload_to_host,
+    param_shardings,
+    replicated,
+    shard_batch,
+    shard_params,
 )
 
 __all__ = [
@@ -21,7 +27,13 @@ __all__ = [
     "single_device_mesh",
     "use_mesh",
     "Placement",
+    "batch_sharding",
     "device_shardings_like",
     "host_shardings",
+    "leaf_sharder",
     "offload_to_host",
+    "param_shardings",
+    "replicated",
+    "shard_batch",
+    "shard_params",
 ]

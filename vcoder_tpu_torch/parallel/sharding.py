@@ -1,9 +1,22 @@
-"""Optimizer state in host memory: the one-device half of
-``vcoder_tpu/parallel/sharding.py`` (its host offload, ``:163-223``).
+"""Parameter and batch sharding over a mesh, and optimizer state in host
+memory (port of ``vcoder_tpu/parallel/sharding.py``).
 
-reference: scripts/zero3_offload.json -- DeepSpeed ZeRO-3 with
-``offload_optimizer {device: cpu, pin_memory: true}`` for memory-tight
-full-LLM finetunes. The JAX package parks the optimizer-state leaves in
+**Sharding rules** (``:25-160``). ``PARAM_RULES``, ``BATCH_AXES``,
+``spec_for_path`` and ``_shrink_to_fit`` are copies of the JAX module's: a
+leaf's path (``tree.py``'s convention) picks a spec, a tuple with one entry
+per tensor dimension, each None, an axis name or a tuple of axis names (a
+``PartitionSpec`` as a tuple); a dimension that an axis does not divide
+drops it. :func:`param_shardings` turns each spec into DTensor placements
+over the ``(data, fsdp, model)`` mesh: mesh dimension i gets ``Shard(j)``
+when tensor dimension j names axis i, else ``Replicate()``; two axes on one
+dimension shard it data-major, as JAX orders them. :func:`shard_params`
+places a tree leaf by leaf, each rank keeping its slice of the same seeded
+or loaded leaf, so no rank holds more than its shards and one whole leaf.
+Quantized and LoRA-wrapped leaves are refused over a mesh (the next slice).
+
+**Host offload** (``:163-223``). reference: scripts/zero3_offload.json --
+DeepSpeed ZeRO-3 with ``offload_optimizer {device: cpu, pin_memory: true}``
+for memory-tight full-LLM finetunes. The JAX package parks the optimizer-state leaves in
 pinned host memory through a sharding's ``memory_kind``; here a leaf's
 :class:`Placement` says where it lives, and ``train/step.py`` streams the
 host leaves through the device a chunk at a time. At 7B ``full`` the Adam
@@ -14,19 +27,227 @@ Every shaped leaf goes to host memory, pinned when the mesh's device is CUDA
 leaves (``count``, ``mini_step``, ``gradient_step``) stay on the device, as
 the JAX package's scalar note has them: moving them saves nothing.
 
-The path -> ``PartitionSpec`` rules of the JAX module (``spec_for_path``,
-``param_shardings``, ``shard_params``, ``shard_batch``, ``batch_sharding``,
-``replicated``) belong to the multi-device slice and are not here.
+Over a distributed mesh each rank holds the local shards of its state
+(the moments of its parameter shards), so the same placements apply to
+them per rank: each rank's shards go to its own pinned memory.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import re
+from typing import Any, Dict, List, Tuple
 
 import torch
 
-from vcoder_tpu_torch.parallel.mesh import Mesh
+from vcoder_tpu_torch.parallel.mesh import AXES, Mesh, multi_device_error
+
+# ---- sharding rules (copies of the JAX module's ``:25-160``) ----
+
+# (path regex, spec). First match wins. Paths are '/'-joined key
+# sequences, e.g. "lm/layers/q_proj" or "mm_projector/w/0".
+PARAM_RULES = [
+    # --- Llama decoder ---
+    (r"^lm/embed_tokens$", ("fsdp", "model")),
+    (r"^lm/layers/(input|post_attention)_layernorm$", ()),
+    (r"^lm/layers/[qkv]_proj$", (None, "fsdp", "model")),
+    (r"^lm/layers/o_proj$", (None, "model", "fsdp")),
+    (r"^lm/layers/(gate|up)_proj$", (None, "fsdp", "model")),
+    (r"^lm/layers/down_proj$", (None, "model", "fsdp")),
+    (r"^lm/norm$", ()),
+    (r"^lm/lm_head$", ("fsdp", "model")),
+    (r"^vcoder_lm_emb$", ("fsdp", "model")),
+    # --- CLIP tower ---
+    (r"^vision_tower/class_embedding$", ()),
+    (r"^vision_tower/patch_embedding$", ("fsdp", "model")),
+    (r"^vision_tower/position_embedding$", (None, "model")),
+    (r"^vision_tower/pre_layernorm/.*$", ()),
+    (r"^vision_tower/layers/ln[12]_(scale|bias)$", ()),
+    (r"^vision_tower/layers/[qkv]_proj$", (None, "fsdp", "model")),
+    (r"^vision_tower/layers/[qkv]_bias$", (None, "model")),
+    (r"^vision_tower/layers/out_proj$", (None, "model", "fsdp")),
+    (r"^vision_tower/layers/out_bias$", ()),
+    (r"^vision_tower/layers/fc1$", (None, "fsdp", "model")),
+    (r"^vision_tower/layers/fc1_bias$", (None, "model")),
+    (r"^vision_tower/layers/fc2$", (None, "model", "fsdp")),
+    (r"^vision_tower/layers/fc2_bias$", ()),
+    # --- projectors (mm / mm2 / seg / depth): small MLPs, fsdp-shard the
+    # matrices, replicate biases ---
+    (r"^(mm|mm2|seg|depth)_projector/w/\d+$", ("fsdp", None)),
+    (r"^(mm|mm2|seg|depth)_projector/b/\d+$", ()),
+]
+
+# Batch-bearing activations shard their leading axis over (data, fsdp):
+# fsdp ranks process distinct samples and gather parameter shards at use.
+BATCH_AXES = ("data", "fsdp")
+
+Spec = Tuple
+
+
+def spec_for_path(path_str: str) -> Spec:
+    """The first rule matching ``path_str`` (quantized ``/q``, ``/scale``
+    and LoRA ``/base``, ``/a``, ``/b`` suffixes stripped), else replicated."""
+    path_str = re.sub(r"(/(q|scale|base|a|b))+$", "", path_str)
+    for pattern, spec in PARAM_RULES:
+        if re.match(pattern, path_str):
+            return spec
+    return ()
+
+
+def _shrink_to_fit(spec: Spec, shape, mesh: Mesh) -> Spec:
+    """Drop mesh axes from a spec when the dimension isn't divisible by the
+    axis size (tiny test configs) or the spec has more dims than the leaf."""
+    if len(spec) > len(shape):
+        return ()
+    out: List = []
+    for dim, names in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        if names is None:
+            out.append(None)
+            continue
+        size = 1
+        for nm in names if isinstance(names, tuple) else (names,):
+            size *= mesh.shape[nm]
+        out.append(names if dim % size == 0 else None)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def placements_of(spec: Spec, mesh: Mesh) -> tuple:
+    """DTensor placements over the mesh's three dimensions for ``spec``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate()] * len(AXES)
+    for j, names in enumerate(spec):
+        for nm in (names if isinstance(names, tuple) else (names,)) if names else ():
+            out[mesh.axis_names.index(nm)] = Shard(j)
+    return tuple(out)
+
+
+def _check_plain(path: str, leaf) -> None:
+    if not isinstance(leaf, torch.Tensor):
+        raise NotImplementedError(
+            f"{path}: {type(leaf).__name__} leaves over a mesh (quantized and LoRA-wrapped "
+            "weights) belong to the port's next multi-device slice")
+
+
+def _leaves(params) -> List[Tuple[str, Any]]:
+    """(path, leaf) in ``tree.py``'s path convention, with quantized and
+    LoRA wrappers kept whole."""
+    out = []
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{prefix}/{k}" if prefix else str(k))
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                walk(v, f"{prefix}/{i}" if prefix else str(i))
+        else:
+            out.append((prefix, tree))
+
+    walk(params, "")
+    return out
+
+
+def param_specs(params, mesh: Mesh) -> Dict[str, Spec]:
+    """{leaf path: spec after ``_shrink_to_fit``} (what JAX's
+    ``param_shardings`` puts in each ``NamedSharding``)."""
+    out = {}
+    for path, leaf in _leaves(params):
+        _check_plain(path, leaf)
+        out[path] = _shrink_to_fit(spec_for_path(path), leaf.shape, mesh)
+    return out
+
+
+def param_shardings(params, mesh: Mesh) -> Dict[str, tuple]:
+    """{leaf path: DTensor placements} mirroring ``params``."""
+    return {p: placements_of(s, mesh) for p, s in param_specs(params, mesh).items()}
+
+
+def _distribute(t: torch.Tensor, mesh: Mesh, placements) -> torch.Tensor:
+    """This rank's slice of ``t`` (the same on every rank) as a DTensor, cut
+    mesh dimension by mesh dimension as DTensor splits (two axes on one
+    dimension data-major): no communication, one copy of the slice (none
+    when nothing splits ``t``), so the caller can free ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    t = t.detach()
+    local = t
+    for axis, p in zip(mesh.axis_names, placements):
+        if p.is_shard() and mesh.shape[axis] > 1:
+            local = local.chunk(mesh.shape[axis], dim=p.dim)[mesh.local_rank(axis)]
+    if local.numel() < t.numel():
+        local = local.clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh.device_mesh, placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def shard_leaf(path: str, t, mesh: Mesh):
+    """This rank's slice of one leaf by the rules, as a DTensor (a DTensor
+    stays as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    _check_plain(path, t)
+    if isinstance(t, DTensor):
+        return t
+    spec = _shrink_to_fit(spec_for_path(path), t.shape, mesh)
+    return _distribute(t.to(mesh.device), mesh, placements_of(spec, mesh))
+
+
+def leaf_sharder(mesh: Mesh):
+    """``place(path, leaf)`` for the parameter builders and checkpoint
+    loaders (their ``place=``): each leaf is sharded as soon as it is made,
+    before the next one, so a rank never holds more than its shards and one
+    whole leaf. None when the mesh is not distributed."""
+    if mesh is None or not mesh.distributed:
+        return None
+    return lambda path, t: shard_leaf(path, t, mesh)
+
+
+def shard_params(params, mesh: Mesh):
+    """Place ``params`` on the mesh by the rules, leaf by leaf, IN the
+    caller's dictionaries (each whole leaf is dropped as soon as its slice
+    is kept; a leaf that is a DTensor already stays); returns ``params``.
+    Every rank must pass the same tree."""
+    if not mesh.distributed:
+        if mesh.size > 1:
+            raise multi_device_error(mesh.size)
+        return params
+    for path, leaf in _leaves(params):
+        _check_plain(path, leaf)  # refused before any leaf is replaced
+
+    def walk(tree, prefix):
+        keys = tree.keys() if isinstance(tree, dict) else range(len(tree))
+        for k in keys:
+            path = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(tree[k], (dict, list)):
+                walk(tree[k], path)
+            else:
+                tree[k] = shard_leaf(path, tree[k], mesh)
+
+    walk(params, "")
+    return params
+
+
+def batch_sharding(mesh: Mesh, ndim: int = 2) -> tuple:
+    """Leading-axis batch placements for inputs of rank ``ndim`` (scalars
+    replicate)."""
+    return placements_of((BATCH_AXES,) if ndim else (), mesh)
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """Shard every tensor of a batch over its leading axis: DTensors whose
+    local part is this rank's rows. Every rank passes the same global batch."""
+    n = mesh.row_shards
+    for k, x in batch.items():
+        if x.ndim and x.shape[0] % n:
+            raise ValueError(f"batch leaf {k} of {x.shape[0]} rows over {n} row shards")
+    return {k: _distribute(x, mesh, batch_sharding(mesh, x.ndim)) for k, x in batch.items()}
+
+
+def replicated(mesh: Mesh) -> tuple:
+    return placements_of((), mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +286,8 @@ class Placement:
 
 def host_shardings(tree: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, Placement]:
     """A :class:`Placement` per leaf of a flat state dict: host memory for
-    every shaped leaf, the device for 0-d leaves."""
+    every shaped leaf, the device for 0-d leaves (this rank's device over a
+    distributed mesh; its local shards are what it places)."""
     dev = mesh.device
     host = "pinned_host" if dev.type == "cuda" else "unpinned_host"
     return {k: Placement(dev, host if t.ndim else "device") for k, t in tree.items()}
@@ -79,4 +301,10 @@ def device_shardings_like(host_sh: Dict[str, Placement]) -> Dict[str, Placement]
 def offload_to_host(tree: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
     """Move a flat state dict to :func:`host_shardings`' placements."""
     sh = host_shardings(tree, mesh)
-    return {k: sh[k].place(t) for k, t in tree.items()}
+    return {k: sh[k].place(_local(t)) for k, t in tree.items()}
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t

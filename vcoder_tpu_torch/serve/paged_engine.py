@@ -1,5 +1,5 @@
 """Paged-KV continuous-batching engine (port of
-``vcoder_tpu/serve/paged_engine.py``, single device).
+``vcoder_tpu/serve/paged_engine.py``).
 
 KV lives in page pools ``[L, n_pages, KH, page, HD]`` (bf16, or int8 with f32
 per-token-per-head scales ``[L, n_pages, KH, page]`` when ``kv_quant``),
@@ -29,6 +29,19 @@ Differences from the JAX engine, none visible in greedy tokens:
   reachable chunk shape once with every row inactive.
 * The TPU's ``page_size % 128`` rule for int8 pools was a Mosaic rule and is
   not kept.
+
+Over a distributed mesh (``:655-800``; ``serve/engine.py`` has the rules
+every rank keeps) rows and their slices of the pools split over ``data x
+fsdp`` and KV heads over ``model``: the pools are placed as JAX's ``P(None,
+rows, "model", None, None)`` (scales ``P(None, rows, "model", None)``), each
+rank holding ``pages_per_shard`` pages of its rows' heads. Page ids are
+global: row shard s owns ``[s * pages_per_shard, (s + 1) *
+pages_per_shard)``, with its own free list, sentinel (its first page) and
+scratch page (its last); ``_shard_of`` maps a slot to its shard, an
+admission writes its prompt pages into the owning shard only, and the
+decode and verify steps run the paged kernels per rank on the table's ids
+rebased to the rank's pools (``models/llama.py``). ``prefix_cache`` and
+``chunked_prefill`` over a mesh raise JAX's ``ValueError``s.
 
 Multi-LoRA (``lora_adapters``, ``serve/engine.py``): decode and verify steps
 run the stacked params, each row through its own adapter; every prefill --
@@ -347,22 +360,36 @@ class PagedServingEngine(ServingEngine):
             seed=seed, mesh=mesh, speculative=speculative, sync_every=sync_every,
             lora_adapters=lora_adapters, eos_id=eos_id, device=device,
         )
+        row_shards = self.mesh.row_shards if self.mesh is not None else 1
+        self.row_shards = row_shards
+        self.rows_per_shard = max_batch // row_shards
         # Speculative windows overshoot a row's accepted length by up to
         # spec_k rejected tokens, sync windows by up to sync_every-1; the
         # table covers that slack so writes never need a page past p_max.
         self.p_max = -(-(max_len + max(self.spec_k, self.sync_every)) // page_size)
         if total_pages is None:
-            # Every slot at max_len plus the sentinel and the scratch page;
-            # set lower to oversubscribe (the point of paging).
-            total_pages = max_batch * self.p_max + 2
-        if total_pages < 3:
+            # Every slot at max_len plus a sentinel and a scratch page per
+            # shard; set lower to oversubscribe (the point of paging).
+            total_pages = row_shards * (self.rows_per_shard * self.p_max + 2)
+        if total_pages % row_shards:
+            raise ValueError(f"total_pages {total_pages} must divide over {row_shards} row shards")
+        self.pages_per_shard = total_pages // row_shards
+        if self.pages_per_shard < 3:
             raise ValueError("need the sentinel, the scratch page and one page")
+        if prefix_cache and self.mesh is not None:
+            raise ValueError("prefix_cache is single-device only (suffix prefill runs the B=1 "
+                             "verify path)")
+        if chunked_prefill and self.mesh is not None:
+            raise ValueError("chunked_prefill is single-device only (chunks run the B=1 verify "
+                             "path)")
         self.total_pages = total_pages
         L = cfg.text.num_layers
-        KH, HD = cfg.text.num_kv_heads, cfg.text.head_dim
+        with self._mesh_ctx():
+            KH, HD = llama_mod.local_kv_heads(cfg.text), cfg.text.head_dim
         self.kv_quant = kv_quant
         dtype = torch.int8 if kv_quant else params["lm"]["embed_tokens"].dtype
-        shape = (L, total_pages, KH, page_size, HD)
+        # This rank's pages (every page without a mesh).
+        shape = (L, self.pages_per_shard, KH, page_size, HD)
         self.k_pages = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v_pages = torch.zeros(shape, dtype=dtype, device=self.device)
         if kv_quant:
@@ -370,15 +397,20 @@ class PagedServingEngine(ServingEngine):
             self.v_scale = torch.zeros(shape[:-1], dtype=torch.float32, device=self.device)
         else:
             self.k_scale = self.v_scale = None
-        # The first page is the sentinel for unused table entries and the
-        # last is the scratch target of inactive-row writes; neither is ever
-        # allocated.
-        self.free_pages: List[int] = list(range(1, total_pages - 1))
+        # Within each shard's pages the first is the sentinel for unused
+        # table entries and the last is the scratch target of inactive-row
+        # writes; neither is ever allocated. Over a mesh, one free list per
+        # row shard (JAX's layout); else one flat list.
+        per = self.pages_per_shard
+        shard_free = [list(range(sh * per + 1, (sh + 1) * per - 1)) for sh in range(row_shards)]
+        self.free_pages = shard_free if self.mesh is not None else shard_free[0]
         self.row_pages: List[List[int]] = [[] for _ in range(max_batch)]
         self.lengths = np.zeros((max_batch,), np.int32)
         self._table_dirty = True
         self._table_dev = None
         self.table = np.zeros((max_batch, self.p_max), np.int32)
+        for slot in range(max_batch):
+            self.table[slot, :] = self._sentinel(slot)
         # Automatic prefix caching: full prompt pages are published under
         # chained content hashes; later requests map matching prefix pages
         # into their table and only the suffix runs through the model.
@@ -434,8 +466,18 @@ class PagedServingEngine(ServingEngine):
 
     # ---- paged allocation ----
 
-    def _alloc(self, n: int) -> List[int]:
-        free = self.free_pages
+    def _shard_of(self, slot: int) -> int:
+        """The row shard that owns ``slot`` (and its pages)."""
+        return slot // self.rows_per_shard
+
+    def _sentinel(self, slot: int) -> int:
+        return self._shard_of(slot) * self.pages_per_shard
+
+    def _free_list(self, slot: int) -> List[int]:
+        return self.free_pages[self._shard_of(slot)] if self.mesh is not None else self.free_pages
+
+    def _alloc(self, n: int, slot: int) -> List[int]:
+        free = self._free_list(slot)
         if len(free) < n and self.prefix_idx is not None:
             # Cached-but-unreferenced prefix pages are reclaimable: evict
             # LRU-first until the allocation fits.
@@ -454,10 +496,10 @@ class PagedServingEngine(ServingEngine):
                 # stays cached (evictable at zero refs).
                 idx.release(pid)
             else:
-                self.free_pages.append(pid)
+                self._free_list(slot).append(pid)
         self.row_pages[slot] = []
         self.lengths[slot] = 0
-        self.table[slot, :] = 0
+        self.table[slot, :] = self._sentinel(slot)
         self._table_dirty = True
 
     def warmup_chunks(self, vision: bool = True) -> None:
@@ -541,7 +583,7 @@ class PagedServingEngine(ServingEngine):
                     if idx is not None and idx.is_registered(pid):
                         idx.release(pid)
                     else:
-                        self.free_pages.append(pid)
+                        self._free_list(rp.slot).append(pid)
                 if g.done:
                     self._pending_groups.remove(g)
                 return True
@@ -674,7 +716,7 @@ class PagedServingEngine(ServingEngine):
                 raise _WaitForPublish()
 
         try:
-            ids = self._alloc(n_used - m)
+            ids = self._alloc(n_used - m, slot)
         except PoolExhausted as e:
             for pid in reused:
                 idx.release(pid)
@@ -705,7 +747,7 @@ class PagedServingEngine(ServingEngine):
                 idx.register(rp.hashes[i], rp.row_ids[i])
         self.row_pages[slot] = rp.row_ids
         self.lengths[slot] = req.prompt_len
-        self.table[slot, :] = 0
+        self.table[slot, :] = self._sentinel(slot)
         self.table[slot, :n_used] = rp.row_ids
         self._table_dirty = True
 
@@ -760,7 +802,7 @@ class PagedServingEngine(ServingEngine):
         m = len(reused)
 
         try:
-            ids = self._alloc(n_used - m)
+            ids = self._alloc(n_used - m, slot)
         except PoolExhausted as e:
             for pid in reused:
                 idx.release(pid)
@@ -774,7 +816,7 @@ class PagedServingEngine(ServingEngine):
         if m:
             logits = self._suffix_prefill(pp, req, plan, arrays, px, row_ids, m)
         else:
-            logits = self._dense_prefill_scatter(pp, req, plan, arrays, px, ids)
+            logits = self._dense_prefill_scatter(pp, req, plan, arrays, px, ids, slot)
 
         if idx is not None:
             # Publish the prompt's fully-covered pages (decode writes land at
@@ -784,12 +826,14 @@ class PagedServingEngine(ServingEngine):
 
         self.row_pages[slot] = row_ids
         self.lengths[slot] = req.prompt_len
-        self.table[slot, :] = 0
+        self.table[slot, :] = self._sentinel(slot)
         self.table[slot, :n_used] = row_ids
         self._table_dirty = True
         return self._sample_first(logits, req)
 
-    def _dense_prefill_scatter(self, pp, req, plan, arrays, px, ids) -> torch.Tensor:
+    def _dense_prefill_scatter(self, pp, req, plan, arrays, px, ids, slot) -> torch.Tensor:
+        """The B=1 dense prefill (on every rank over a mesh), its KV written
+        into the pages ``ids`` (global) by the slot's row shard."""
         n_used = len(ids)
         with torch.no_grad():
             logits, tmp_k, tmp_v = _dense_prefill(
@@ -797,7 +841,10 @@ class PagedServingEngine(ServingEngine):
                 use_vcoder_emb=plan.use_vcoder_emb and self.cfg.use_vcoder_lm_emb,
                 attn_impl=self.attn_impl,
             )
-            page_ids = torch.as_tensor(ids, dtype=torch.int64, device=self.device)
+            if self.mesh is not None and self._shard_of(slot) != self.mesh.row_index:
+                return logits
+            base = self._shard_of(slot) * self.pages_per_shard
+            page_ids = torch.as_tensor(ids, dtype=torch.int64, device=self.device) - base
             if self.kv_quant:
                 _scatter_pages_q8(
                     self.k_pages, self.v_pages, self.k_scale, self.v_scale, tmp_k, tmp_v,
@@ -1000,7 +1047,7 @@ class PagedServingEngine(ServingEngine):
                 continue
             while len(self.row_pages[slot]) < needed_total:
                 try:
-                    pid = self._alloc(1)[0]
+                    pid = self._alloc(1, slot)[0]
                 except PoolExhausted:
                     if self.active.sum() > 1 or self._pending is not None:
                         # Other rows (or a pending chunked admission) will
@@ -1025,7 +1072,7 @@ class PagedServingEngine(ServingEngine):
         for s, t in live:
             self.tokens[s] = t
 
-    def step(self) -> List[Tuple[int, int, bool]]:
+    def _step(self) -> List[Tuple[int, int, bool]]:
         events = self._admit()
         if not self.active.any():
             return events

@@ -17,14 +17,17 @@ numbers than JAX's), wraps every decoder linear in fresh adapters for
 newest ``checkpoint-*``), then writes a step checkpoint,
 ``adapters.safetensors`` and ``final/`` (LoRA merged) with the tokenizer.
 
-It runs on one device, ``--device`` (CUDA unless ``cpu``), over a
-one-device mesh entered with ``use_mesh`` as the JAX driver does
-(``drivers.py:208-236``). JAX's mesh takes every visible device with
-``fsdp`` absorbing them; the port's takes the one ``--device``, and
-``--mesh-data/--mesh-fsdp/--mesh-model`` with a product above 1 raise
-``NotImplementedError`` (the multi-device slice). ``--offload-opt-state``
-keeps the optimizer state in pinned host memory, streamed through the card
-each step (the zero3_offload analog; ``train/step.py``).
+Under torchrun (``python -m torch.distributed.run --nproc-per-node N -m
+vcoder_tpu_torch.train.vcoder_ds_train ...``) every rank joins the process
+group (``parallel/launch.py``) and trains over a mesh of the group's ranks
+built by ``--mesh-data/--mesh-fsdp/--mesh-model`` with JAX's rule (every
+rank on ``fsdp`` by default, ``drivers.py:72-75,208-236``); rank 0 writes
+the outputs. A plain ``python -m`` call runs on one device, ``--device``
+(CUDA unless ``cpu``), over a one-device mesh entered with ``use_mesh``
+(JAX's mesh would take every visible device); there a mesh product above 1
+raises a ``ValueError`` that names torchrun. ``--offload-opt-state`` keeps
+the optimizer state in pinned host memory, streamed through the card each
+step (the zero3_offload analog; ``train/step.py``).
 """
 
 from __future__ import annotations
@@ -74,7 +77,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--lora-enable", action=argparse.BooleanOptionalAction, default=False)
     p.add_argument("--lora-r", type=int, default=128)
     p.add_argument("--lora-alpha", type=float, default=256.0)
-    # mesh (the multi-device slice: a product above 1 raises)
+    # mesh (a product above 1 needs torchrun: one process per device)
     p.add_argument("--mesh-data", type=int, default=None)
     p.add_argument("--mesh-fsdp", type=int, default=None)
     p.add_argument("--mesh-model", type=int, default=None)
@@ -94,14 +97,27 @@ STAGE_MODEL_TYPE = {
 }
 
 
-def check_single_device(args) -> None:
-    """Refuse a mesh above one device (the multi-device slice)."""
-    mesh = [getattr(args, f"mesh_{ax}", None) or 1 for ax in ("data", "fsdp", "model")]
-    if mesh[0] * mesh[1] * mesh[2] > 1:
-        raise NotImplementedError(
-            f"--mesh-data/--mesh-fsdp/--mesh-model {mesh}: a multi-device mesh belongs to the "
-            "port's multi-device slice; leave them unset or 1 for one device"
-        )
+def stage_mesh(args):
+    """The stage's mesh and this process's device: over the torchrun group
+    when there is one, else the one ``--device``, where a mesh product above
+    1 raises."""
+    from vcoder_tpu_torch.parallel import launch, make_mesh
+
+    device = getattr(args, "device", "cuda")
+    sizes = dict(data=args.mesh_data, fsdp=args.mesh_fsdp, model=args.mesh_model)
+    if launch.in_torchrun():
+        device = launch.init_distributed(device)
+        return make_mesh(**sizes), device
+    product = 1
+    for v in sizes.values():
+        product *= v or 1
+    if product > 1:
+        raise ValueError(
+            f"--mesh-data/--mesh-fsdp/--mesh-model {sizes}: a mesh of {product} devices runs "
+            "one process per device; launch the stage with python -m torch.distributed.run "
+            "--nproc-per-node N")
+    # The one --device (JAX's mesh takes every visible device).
+    return make_mesh([device], **sizes), device
 
 
 def build_entries(stage: str, args):
@@ -146,15 +162,16 @@ def run_stage(stage: str, args):
     from vcoder_tpu_torch.checkpoint import save_pretrained
     from vcoder_tpu_torch.config import _variant_flags
     from vcoder_tpu_torch.models.vcoder import initialize_missing_modules
-    from vcoder_tpu_torch.parallel import make_mesh, use_mesh
+    from vcoder_tpu_torch.parallel import use_mesh
+    from vcoder_tpu_torch.parallel.mesh import rank_zero
+    from vcoder_tpu_torch.parallel.sharding import leaf_sharder
     from vcoder_tpu_torch.train.datasets import VCoderDataset
     from vcoder_tpu_torch.train.trainer import TrainArgs, Trainer
 
-    check_single_device(args)
-    device = getattr(args, "device", "cuda")
-    # The one --device (JAX's mesh takes every visible device).
-    mesh = make_mesh([device], data=args.mesh_data, fsdp=args.mesh_fsdp, model=args.mesh_model)
-    tokenizer, model, *_ = builder.load_pretrained_model(args.model_path, device=device)
+    mesh, device = stage_mesh(args)
+    # Over a process group each leaf is sharded as it is loaded.
+    tokenizer, model, *_ = builder.load_pretrained_model(args.model_path, device=device,
+                                                         place=leaf_sharder(mesh))
     cfg = model.config
     if tokenizer is None:
         raise SystemExit("model-path must contain tokenizer files (or a vcoder_tokenizer.json)")
@@ -236,7 +253,8 @@ def run_stage(stage: str, args):
             final_params = merge_lora(final_params)
         final = os.path.join(args.output_dir, "final")
         save_pretrained(final, final_params, cfg)
-        if hasattr(tokenizer, "save_pretrained"):
+        if hasattr(tokenizer, "save_pretrained") and rank_zero():
             tokenizer.save_pretrained(final)
-    print("training complete:", args.output_dir)
+    if rank_zero():
+        print("training complete:", args.output_dir)
     return trainer

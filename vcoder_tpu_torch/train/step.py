@@ -32,10 +32,20 @@ elementwise, so the chunks change no number: the offloaded step's parameters
 and state are the resident step's, bit for bit. (JAX uploads the whole state
 inside its jit and returns it host-pinned.) The device never holds more of
 the state than the staging buffers.
+
+Over a distributed mesh (``parallel/spmd.py``) the parameters, gradients and
+moments are DTensors placed by ``parallel/sharding.py``'s rules and the
+batch holds this rank's rows (``shard_batch``). The loss and the metrics
+come out replicated: the loss summed over the row shards, the norms from
+one all-reduce of every leaf's local sum of squares (each shard counted
+once). AdamW's elementwise body runs on each rank's local shards, so it is
+the DTensor update bit for bit; the offloaded step streams each rank's
+local moments through its ``StateStager``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import re
 from typing import Callable, Dict, List, Optional
@@ -44,6 +54,7 @@ import torch
 
 from vcoder_tpu_torch.config import VCoderConfig
 from vcoder_tpu_torch.models import vcoder as model_mod
+from vcoder_tpu_torch.parallel import spmd
 from vcoder_tpu_torch.tree import named_leaves
 
 STAGE_TRAINABLE = {
@@ -78,9 +89,40 @@ def trainable_leaves(params: dict, stage: str) -> Dict[str, torch.Tensor]:
     return {path: t for path, t in named_leaves(params) if mask[path]}
 
 
+def _local(t):
+    """A DTensor's local shard (the tensor itself under ``no_grad``, so
+    in-place updates land in the DTensor); a plain tensor as is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def sharded_sq_sums(tensors) -> torch.Tensor:
+    """[n] f32: each tensor's global sum of squares, from one all-reduce of
+    the local sums over the whole group. A rank adds a shard only when it is
+    the first of its replicas (coordinate 0 on every mesh dimension the
+    tensor is replicated over), so each element counts once."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    m = spmd.mesh()
+    sums = []
+    for t in tensors:
+        owner = all(m.device_mesh.get_local_rank(i) == 0 for i, p in enumerate(
+            t.placements if isinstance(t, DTensor) else [None] * 3) if p is None or not p.is_shard())
+        local = _local(t).float().square().sum()
+        sums.append(local if owner else torch.zeros_like(local))
+    out = torch.stack(sums)
+    dist.all_reduce(out)
+    return out
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32 (optax's
-    ``global_norm``)."""
+    ``global_norm``); over DTensors, of the whole (sharded) tensors."""
+    tensors = list(tensors)
+    if spmd.mesh() is not None:
+        return torch.sqrt(sharded_sq_sums(tensors).sum())
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
@@ -174,21 +216,21 @@ class AdamW:
         if self.accum_steps > 1:
             n = int(state["mini_step"])
             for path, g in grads.items():
-                self._accumulate(state[f"acc/{path}"], g, n)
+                self._accumulate(_local(state[f"acc/{path}"]), _local(g), n)
             if n + 1 < self.accum_steps:
                 state["mini_step"].fill_(n + 1)
                 return
             grads = {path: state[f"acc/{path}"].clone() for path in grads}
             for path in grads:
-                state[f"acc/{path}"].zero_()
+                _local(state[f"acc/{path}"]).zero_()
             state["mini_step"].zero_()
             state["gradient_step"].add_(1)
         g_norm = self._clip_norm(grads.values())
-        grads = {p: self._clip(g, g_norm) for p, g in grads.items()}
+        grads = {p: self._clip(_local(g), g_norm) for p, g in grads.items()}
         bc1, bc2, step_size = self._scalars(state)
         for path, p in leaves.items():
-            self._adam(p, grads[path], state[f"mu/{path}"], state[f"nu/{path}"], bc1, bc2,
-                       step_size)
+            self._adam(_local(p), grads[path], _local(state[f"mu/{path}"]),
+                       _local(state[f"nu/{path}"]), bc1, bc2, step_size)
         state["count"].add_(1)
 
     @torch.no_grad()
@@ -196,7 +238,11 @@ class AdamW:
                          state: Dict[str, torch.Tensor], stager: "StateStager") -> None:
         """:meth:`update` with the shaped state leaves in host memory,
         streamed through ``stager`` chunk by chunk. ``grads`` are consumed:
-        under accumulation they are overwritten with the averaged gradient."""
+        under accumulation they are overwritten with the averaged gradient.
+        Over a mesh the host state holds this rank's shards."""
+        sharded = grads
+        grads = {p: _local(g) for p, g in grads.items()}
+        leaves = {p: _local(t) for p, t in leaves.items()}
         if self.accum_steps > 1:
             n = int(state["mini_step"])
             last = n + 1 >= self.accum_steps
@@ -214,7 +260,7 @@ class AdamW:
                 return
             state["mini_step"].zero_()
             state["gradient_step"].add_(1)
-        g_norm = self._clip_norm(grads.values())
+        g_norm = self._clip_norm(sharded.values())
         bc1, bc2, step_size = self._scalars(state)
 
         def adam_chunk(path, rows, staged):
@@ -399,6 +445,31 @@ def init_opt_state(params: dict, optimizer: AdamW, stage: str) -> Dict[str, torc
     return optimizer.init(trainable_leaves(params, stage))
 
 
+def _as_placed(g, t):
+    """A DTensor gradient placed like its parameter (a partial sum reduced)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(g, DTensor) and g.placements != t.placements:
+        return g.redistribute(t.device_mesh, t.placements)
+    return g
+
+
+def _local_batch(batch: dict) -> dict:
+    """This rank's rows of a batch: a DTensor's local part (``shard_batch``),
+    or the rank's slice of a global batch every rank holds whole."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for k, x in batch.items():
+        if isinstance(x, DTensor):
+            out[k] = x.to_local()
+        elif isinstance(x, torch.Tensor) and x.ndim:
+            out[k] = x[spmd.row_slice(x.shape[0])]
+        else:
+            out[k] = x
+    return out
+
+
 def make_train_step(
     cfg: VCoderConfig,
     optimizer: AdamW,
@@ -431,29 +502,39 @@ def make_train_step(
     use_seg, use_depth = cfg.use_seg, cfg.use_depth
 
     def step(params, opt_state, batch):
+        mesh = spmd.mesh()
+        if mesh is not None:
+            batch = _local_batch(batch)
         leaves = trainable_leaves(params, stage)
         for t in leaves.values():
             t.requires_grad_(True)
-        loss = model_mod.train_forward(
-            params,
-            cfg,
-            batch,
-            batch.get("images"),
-            batch.get("segs") if use_seg else None,
-            batch.get("depths") if use_depth else None,
-            use_vcoder_emb=cfg.use_vcoder_lm_emb and use_seg,
-            attn_impl=attn_impl,
-            remat=remat,
-        )
+        with spmd.local_rows() if mesh is not None else contextlib.nullcontext():
+            loss = model_mod.train_forward(
+                params,
+                cfg,
+                batch,
+                batch.get("images"),
+                batch.get("segs") if use_seg else None,
+                batch.get("depths") if use_depth else None,
+                use_vcoder_emb=cfg.use_vcoder_lm_emb and use_seg,
+                attn_impl=attn_impl,
+                remat=remat,
+            )
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
         # A leaf the loss does not reach (depth_projector: depth goes through
         # the seg projector) gets a zero gradient, as in JAX.
         grads = {
-            path: torch.zeros_like(t) if g is None else g
+            path: torch.zeros_like(t) if g is None else _as_placed(g, t)
             for (path, t), g in zip(leaves.items(), grads)
         }
-        leaf_norms = {path: global_norm([g]) for path, g in grads.items()}
-        gnorm = global_norm(grads.values())
+        if mesh is None:
+            leaf_norms = {path: global_norm([g]) for path, g in grads.items()}
+            gnorm = global_norm(grads.values())
+        else:
+            sq = sharded_sq_sums(list(grads.values()))
+            leaf_norms = dict(zip(grads, torch.sqrt(sq).unbind()))
+            gnorm = torch.sqrt(sq.sum())
+            loss = spmd.sum_rows(loss.detach())
         if stager is None:
             optimizer.update(leaves, grads, opt_state)
         else:

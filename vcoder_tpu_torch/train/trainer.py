@@ -4,9 +4,17 @@
 * Batches collate into bucketed static sequence lengths (``BUCKETS``), as
   in the JAX package, so the kernels see a handful of shapes.
 * The step is ``train/step.py``'s, on one device (CUDA unless the caller
-  passes ``device="cpu"``). ``mesh`` may be a one-device ``parallel.Mesh``
-  (its device must be ``device``); a mesh above one device belongs to the
-  multi-device slice and raises ``NotImplementedError``.
+  passes ``device="cpu"``) or over a mesh. ``mesh`` may be a one-device
+  ``parallel.Mesh`` (its device must be ``device``) or a distributed one
+  (``parallel/launch.py``; ``trainer.py:125-148,219-222``): then this
+  process is one rank, its device the mesh's, the parameters are sharded
+  by ``parallel/sharding.py``'s rules (in the caller's dictionaries), the
+  global batch is ``per_device_train_batch_size x data x fsdp`` and every
+  rank draws it whole from the seeded sampler and keeps its rows
+  (``shard_batch``). Rank 0 writes the checkpoints, ``adapters.safetensors``
+  and ``metrics.jsonl``, gathering one leaf at a time, with barriers
+  around each write; resume re-shards what it reads. A plain mesh of
+  several devices (no process group) raises ``NotImplementedError``.
 * ``offload_opt_state`` (the zero3_offload analog) needs a mesh, as in the
   JAX package: the shaped optimizer-state leaves are made in host memory
   (pinned on CUDA; ``parallel/sharding.py``) and streamed through the device
@@ -48,7 +56,13 @@ import torch
 from vcoder_tpu_torch.checkpoint import read_safetensors, write_safetensors
 from vcoder_tpu_torch.config import VCoderConfig
 from vcoder_tpu_torch.device import resolve_device
-from vcoder_tpu_torch.parallel.sharding import device_shardings_like, host_shardings
+from vcoder_tpu_torch.parallel.mesh import barrier, multi_device_error, rank_zero
+from vcoder_tpu_torch.parallel.sharding import (
+    device_shardings_like,
+    host_shardings,
+    shard_batch,
+    shard_params,
+)
 from vcoder_tpu_torch.train.collator import collate_batch
 from vcoder_tpu_torch.train.sampler import LengthGroupedSampler
 from vcoder_tpu_torch.train.step import (
@@ -70,17 +84,18 @@ def bucket_length(n: int, buckets=BUCKETS) -> int:
 
 
 def epoch_batches(
-    cfg: VCoderConfig, dataset, args: "TrainArgs", epoch: int, *, skip: int = 0, device="cuda"
+    cfg: VCoderConfig, dataset, args: "TrainArgs", epoch: int, *, skip: int = 0, device="cuda",
+    world: int = 1,
 ) -> Iterator[dict]:
     """The collated batches of one epoch as ``Trainer`` consumes them: the
-    sampler's order for ``epoch``, ``per_device_train_batch_size`` samples
-    each, padded to the bucket of the longest expanded sample; ``skip``
-    drops the first N batches by slicing the order (no loading or
-    collation for them)."""
-    B = args.per_device_train_batch_size
+    sampler's order for ``epoch``, ``per_device_train_batch_size x world``
+    samples each (``world``: the row shards of a mesh), padded to the
+    bucket of the longest expanded sample; ``skip`` drops the first N
+    batches by slicing the order (no loading or collation for them)."""
+    B = args.per_device_train_batch_size * world
     sampler = LengthGroupedSampler(
-        B,
-        1,
+        args.per_device_train_batch_size,
+        world,
         dataset.modality_lengths
         if args.group_by_modality_length
         else [abs(l) for l in dataset.modality_lengths],
@@ -163,10 +178,8 @@ class Trainer:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                f"a mesh of {mesh.size} devices: mesh-sharded training belongs to the port's "
-                "multi-device slice")
+        if mesh is not None and mesh.size > 1 and not mesh.distributed:
+            raise multi_device_error(mesh.size)
         self.device = resolve_device(device)
         if mesh is not None and (mesh.device.type, mesh.device.index or 0) != (
                 self.device.type, self.device.index or 0):
@@ -175,6 +188,10 @@ class Trainer:
         off = [p for p, t in named_leaves(params) if t.device.type != self.device.type]
         if off:
             raise ValueError(f"params lie off {self.device} (e.g. {off[0]})")
+        self.sharded = mesh is not None and mesh.distributed
+        if self.sharded:
+            self.device = mesh.device
+            shard_params(params, mesh)
         self.cfg = cfg
         self.args = args
         self.dataset = dataset
@@ -203,13 +220,22 @@ class Trainer:
                     "wrap one card in parallel.single_device_mesh())")
             # The state's shapes, then its zeros made where they live: the
             # moments never pass through the device whole.
-            meta = {p: t.to("meta") for p, t in trainable_leaves(params, args.stage).items()}
+            # Over a distributed mesh: this rank's shards of them.
+            meta = {p: _local(t).to("meta")
+                    for p, t in trainable_leaves(params, args.stage).items()}
             shapes = self.optimizer.init(meta)
             host_sh = host_shardings(shapes, mesh)
             self.opt_state = {k: host_sh[k].zeros(t) for k, t in shapes.items()}
             offload_shardings = (device_shardings_like(host_sh), host_sh)
         else:
             self.opt_state = init_opt_state(params, self.optimizer, args.stage)
+        # Each state key's parameter placements (a distributed mesh's host
+        # shards are plain tensors; checkpoints wrap them back).
+        self._placements = {}
+        if self.sharded:
+            for p, t in trainable_leaves(params, args.stage).items():
+                for kind in ("mu", "nu", "acc"):
+                    self._placements[f"{kind}/{p}"] = t.placements
         self.step_fn = make_train_step(
             cfg, self.optimizer, stage=args.stage, attn_impl=args.attn_impl, remat=args.remat,
             offload_shardings=offload_shardings,
@@ -222,8 +248,12 @@ class Trainer:
     # ---- data ----
 
     def _epoch_batches(self, epoch: int, skip: int = 0) -> Iterator[dict]:
-        return epoch_batches(self.cfg, self.dataset, self.args, epoch, skip=skip,
-                             device=self.device)
+        gen = epoch_batches(self.cfg, self.dataset, self.args, epoch, skip=skip,
+                            device=self.device, world=self.global_batch //
+                            self.args.per_device_train_batch_size)
+        if not self.sharded:
+            return gen
+        return (shard_batch(b, self.mesh) for b in gen)
 
     def _prefetched(self, gen: Iterator[dict]) -> Iterator[dict]:
         """Stage up to ``args.prefetch_batches`` collated batches ahead of
@@ -285,25 +315,45 @@ class Trainer:
             key=lambda p: int(p.rsplit("-", 1)[-1]),
         )
 
+    def _opt_global(self) -> dict:
+        """The optimizer state as written: over a distributed mesh each
+        host-resident shard becomes a DTensor placed like its parameter (a
+        device copy; the 0-d counters, equal on every rank, as they are)."""
+        if not (self.sharded and self.args.offload_opt_state):
+            return dict(self.opt_state)
+        from torch.distributed.tensor import DTensor
+
+        out = {}
+        for k, t in self.opt_state.items():
+            pl = self._placements.get(k)
+            out[k] = t if pl is None else DTensor.from_local(
+                t.to(self.device), self.mesh.device_mesh, pl, run_check=False)
+        return out
+
     def save_checkpoint(self) -> str:
         """Params, optimizer state and step into
         ``checkpoint-<step>/state.safetensors``; older checkpoints beyond
         ``save_total_limit`` are removed."""
         path = os.path.abspath(self._ckpt_dir(self.step))
         state_file = os.path.join(path, "state.safetensors")
-        if os.path.exists(state_file):
+        exists = os.path.exists(state_file)
+        barrier()  # every rank has looked before rank 0 writes
+        if exists:
             return path  # the end of an epoch can land on a save step again
-        os.makedirs(path, exist_ok=True)
+        if rank_zero():
+            os.makedirs(path, exist_ok=True)
         state = {f"params/{p}": t for p, t in named_leaves(self.params)}
-        state.update({f"opt/{k}": t for k, t in self.opt_state.items()})
+        state.update({f"opt/{k}": t for k, t in self._opt_global().items()})
         state["step"] = torch.tensor(self.step, dtype=torch.int64)
         write_safetensors(state_file + ".tmp", state)
-        os.replace(state_file + ".tmp", state_file)
-        ckpts = self._checkpoints()
-        while len(ckpts) > self.args.save_total_limit:
-            victim = ckpts.pop(0)
-            if victim != path:
-                shutil.rmtree(victim, ignore_errors=True)
+        if rank_zero():
+            os.replace(state_file + ".tmp", state_file)
+            ckpts = self._checkpoints()
+            while len(ckpts) > self.args.save_total_limit:
+                victim = ckpts.pop(0)
+                if victim != path:
+                    shutil.rmtree(victim, ignore_errors=True)
+        barrier()
         return path
 
     def maybe_resume(self) -> bool:
@@ -316,9 +366,9 @@ class Trainer:
         state = read_safetensors(os.path.join(ckpts[-1], "state.safetensors"))
         with torch.no_grad():
             for p, t in named_leaves(self.params):
-                t.copy_(state[f"params/{p}"])
+                _copy_in(t, state[f"params/{p}"], self.mesh)
             for k, t in self.opt_state.items():
-                t.copy_(state[f"opt/{k}"])
+                _copy_in(t, state[f"opt/{k}"], self.mesh, self._placements.get(k))
         self.step = int(state["step"])
         return True
 
@@ -327,11 +377,20 @@ class Trainer:
         ``adapters.safetensors`` (``trainer.py:342-357``)."""
         out = os.path.join(self.args.output_dir, "adapters.safetensors")
         write_safetensors(out, trainable_leaves(self.params, self.args.stage))
+        barrier()
         return out
 
     # ---- loop ----
 
     def train(self, max_steps: Optional[int] = None) -> List[dict]:
+        if self.sharded:
+            from vcoder_tpu_torch.parallel.mesh import use_mesh
+
+            with use_mesh(self.mesh):  # the model code reads the thread's mesh
+                return self._train(max_steps)
+        return self._train(max_steps)
+
+    def _train(self, max_steps: Optional[int] = None) -> List[dict]:
         history = []
         t_start = time.time()
         budget = max_steps or self.total_steps
@@ -361,10 +420,30 @@ class Trainer:
                             "elapsed_s": round(time.time() - t_start, 1),
                         }
                         history.append(rec)
-                        with open(self._metrics_path, "a") as f:
-                            f.write(json.dumps(rec) + "\n")
+                        if rank_zero():
+                            with open(self._metrics_path, "a") as f:
+                                f.write(json.dumps(rec) + "\n")
                     if self.step % self.args.save_steps == 0:
                         self.save_checkpoint()
             if self.step >= budget:
                 break
         return history
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _copy_in(t: torch.Tensor, full: torch.Tensor, mesh, placements=None) -> None:
+    """Copy a whole tensor read from a checkpoint into ``t``: a DTensor (or,
+    with ``placements``, a host local shard) takes this rank's slice."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if isinstance(t, DTensor):
+        placements, t = t.placements, t.to_local()
+    if placements is not None:
+        full = distribute_tensor(full.to(mesh.device), mesh.device_mesh, placements,
+                                 src_data_rank=None).to_local()
+    t.copy_(full)
