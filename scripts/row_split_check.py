@@ -137,14 +137,14 @@ def main() -> int:
     cs.SHARDED_ENGINES = engines
     clip.FUSED_BLOCKS = False
     columns = column_split_exact(params)
-    runs = {"exact": cs.sharded_engines(cfg, params, traffic, None, "cuda")["A"]}
+    runs = {"exact": cs.sharded_engines(cfg, {None: params}, traffic, None, "cuda")["A"]}
     splits = {"bf16": ("bf16", "all"), "f32": ("f32", "all"),
               "f32_decoder": ("f32", "decoder"), "f32_tower": ("f32", "tower")}
     for label, (route, where) in splits.items():
         with split_products(route, where):
-            runs[label] = cs.sharded_engines(cfg, params, traffic, None, "cuda")["A"]
+            runs[label] = cs.sharded_engines(cfg, {None: params}, traffic, None, "cuda")["A"]
     clip.FUSED_BLOCKS = True
-    runs["fused_tower"] = cs.sharded_engines(cfg, params, traffic, None, "cuda")["A"]
+    runs["fused_tower"] = cs.sharded_engines(cfg, {None: params}, traffic, None, "cuda")["A"]
     ref = runs["exact"]
     gaps = {}
     for route in list(splits) + ["fused_tower"]:

@@ -12,9 +12,17 @@ the paged engine with ``FUSED_APPEND``, bf16 and int8 + speculative), on
 every rank; every shard's free list whole again at the end (mirrors
 ``test_engine.py:155,275`` and ``test_paged_engine.py:303,472,665``). JAX's
 ``ValueError``s for the prefix cache, chunked prefill and multi-LoRA over a
-mesh, and the ``NotImplementedError`` for quantized weights. Exact
-equality: greedy tokens of f32 implementations agree unless two logits tie
-to ~1e-6.
+mesh.
+
+Quantized weights (``quantize_params`` at 8 and 4 bits) at mesh ``(1, 2,
+2)``, so ``fsdp`` gathers each field and ``model`` splits it, with
+``W8A8_MIN_TOKENS`` lowered to 16 in both packages (the prefills take the
+W8A8 product, row-parallel ones reducing the row absmax and the s32
+products over ``model``; the decode steps the int8 upcast and the int4
+nibble split): the slot and paged engines' tokens equal the port's
+one-device engines on every rank, and the paged int4 engine's equal JAX's
+int4 mesh engine (mirrors ``test_paged_engine.py:339``). Exact equality:
+greedy tokens of f32 implementations agree unless two logits tie to ~1e-6.
 """
 
 import functools
@@ -28,6 +36,7 @@ from vcoder_tpu_torch.parallel import launch
 torch.set_num_threads(1)
 
 MESH = (2, 1, 2)
+QMESH = (1, 2, 2)
 CASES = {
     "slot": ("slot", {}),
     "slot_int8": ("slot", {"kv_quant": True}),
@@ -37,8 +46,18 @@ CASES = {
     "paged_spec": ("paged", {"speculative": 4}),
     "paged_fused": ("paged", {"fused": True}),
     "paged_fused_int8_spec": ("paged", {"fused": True, "kv_quant": True, "speculative": 4}),
+    # Quantized weights, at QMESH.
+    "slot_w8": ("slot", {"bits": 8}),
+    "slot_w4": ("slot", {"bits": 4}),
+    "paged_w8": ("paged", {"bits": 8, "kv_quant": True}),
+    "paged_w4": ("paged", {"bits": 4}),
 }
-JAX_CASES = ("slot", "paged", "paged_int8", "paged_spec")
+JAX_CASES = ("slot", "paged", "paged_int8", "paged_spec", "paged_w4")
+W8A8_MIN_TOKENS = 16
+
+
+def _mesh_of(case):
+    return QMESH if "bits" in CASES[case][1] else MESH
 
 
 def _requests(cfg):
@@ -58,13 +77,16 @@ def _run(engine, requests):
 def _port_engine(np_params, case, mesh, **extra):
     from vcoder_tpu_torch.checkpoint import from_jax_params
     from vcoder_tpu_torch.config import VCoderConfig
+    from vcoder_tpu_torch.quant import quantize_params
     from vcoder_tpu_torch.serve.engine import ServingEngine
     from vcoder_tpu_torch.serve.paged_engine import PagedServingEngine
 
     kind, kw = CASES[case]
-    kw = {k: v for k, v in kw.items() if k != "fused"}
+    kw = {k: v for k, v in kw.items() if k not in ("fused", "bits")}
     cfg = VCoderConfig.tiny("vcoder_ds_llava")
     params = from_jax_params(np_params, cfg, device="cpu")
+    if "bits" in CASES[case][1]:
+        params = quantize_params(params, bits=CASES[case][1]["bits"])
     make = (functools.partial(ServingEngine, max_len=256) if kind == "slot"
             else functools.partial(PagedServingEngine, max_len=256, page_size=8))
     return make(cfg, params, max_batch=4, attn_impl="auto", device="cpu", mesh=mesh,
@@ -74,9 +96,12 @@ def _port_engine(np_params, case, mesh, **extra):
 def _port_tokens(np_params, case, mesh):
     from vcoder_tpu_torch.config import VCoderConfig
     from vcoder_tpu_torch.ops import paged_attention as pa
+    from vcoder_tpu_torch.ops import quant as tq
 
     fused = CASES[case][1].get("fused", False)
     pa.FUSED_APPEND, before = fused, pa.FUSED_APPEND
+    tq.W8A8_MIN_TOKENS, min_tokens = W8A8_MIN_TOKENS, tq.W8A8_MIN_TOKENS
+    w8a8 = tq.w8a8_matmul
     calls = {}
     names = ("carry_paged_attention_fused", "carry_paged_attention",
              "carry_paged_attention_q8", "carry_paged_attention_multi",
@@ -91,11 +116,13 @@ def _port_tokens(np_params, case, mesh):
 
     for n in names:
         setattr(pa, n, spy(n, saved[n]))
+    tq.w8a8_matmul = spy("w8a8", w8a8)
     try:
         eng = _port_engine(np_params, case, mesh)
         toks = _run(eng, _requests(VCoderConfig.tiny("vcoder_ds_llava")))
     finally:
         pa.FUSED_APPEND = before
+        tq.W8A8_MIN_TOKENS, tq.w8a8_matmul = min_tokens, w8a8
         for n in names:
             setattr(pa, n, saved[n])
     free = None
@@ -111,26 +138,29 @@ def _rank_body(rank, world, np_params):
     from vcoder_tpu_torch.quant import quantize_params
 
     torch.set_num_threads(1)
-    mesh = make_mesh(data=MESH[0], fsdp=MESH[1], model=MESH[2])
-    out = {case: _port_tokens(np_params, case, mesh) for case in CASES}
+    meshes = {s: make_mesh(data=s[0], fsdp=s[1], model=s[2]) for s in (MESH, QMESH)}
+    out = {case: _port_tokens(np_params, case, meshes[_mesh_of(case)]) for case in CASES}
     errors = {}
     for name, kw in (("prefix_cache", dict(prefix_cache=True)),
                      ("chunked_prefill", dict(chunked_prefill=16)),
-                     ("lora", dict(lora_adapters={"a": {}}))):
+                     ("lora", dict(lora_adapters={"a": {}})),
+                     ("lora_w8", dict(lora_adapters={"a": {}}))):
         try:
-            _port_engine(np_params, "paged" if name != "lora" else "slot", mesh, **kw)
+            case = "paged" if "lora" not in name else "slot_w8" if "w8" in name else "slot"
+            _port_engine(np_params, case, meshes[_mesh_of(case)], **kw)
         except ValueError as e:
             errors[name] = str(e)
-    try:
-        from vcoder_tpu_torch.checkpoint import from_jax_params
-        from vcoder_tpu_torch.config import VCoderConfig
-        from vcoder_tpu_torch.serve.engine import ServingEngine
+    # The fields of a quantized tree over the mesh: each rank's slices.
+    from vcoder_tpu_torch.checkpoint import from_jax_params
+    from vcoder_tpu_torch.config import VCoderConfig
+    from vcoder_tpu_torch.serve.engine import ServingEngine
+    from vcoder_tpu_torch.tree import named_leaves
 
-        cfg = VCoderConfig.tiny("vcoder_ds_llava")
-        q = quantize_params(from_jax_params(np_params, cfg, device="cpu"), bits=8)
-        ServingEngine(cfg, q, max_batch=4, max_len=256, device="cpu", mesh=mesh)
-    except NotImplementedError as e:
-        errors["quantized"] = str(e)
+    cfg = VCoderConfig.tiny("vcoder_ds_llava")
+    q = quantize_params(from_jax_params(np_params, cfg, device="cpu"), bits=4)
+    eng = ServingEngine(cfg, q, max_batch=4, max_len=256, device="cpu", mesh=meshes[QMESH])
+    out["quantized_fields"] = {p: type(t).__name__ for p, t in named_leaves(eng.params)
+                               if p.startswith("lm/layers/o_proj")}
     out["errors"] = errors
     return out
 
@@ -159,15 +189,26 @@ def jax_mesh_tokens(setup):
     from vcoder_tpu.serve.paged_engine import PagedServingEngine
 
     jcfg = setup["jcfg"]
-    mesh = make_mesh(jax.devices()[:4], data=MESH[0], fsdp=MESH[1], model=MESH[2])
+    from vcoder_tpu.ops import quant as jq
+    from vcoder_tpu.quant import quantize_params
+
     out = {}
     for case in JAX_CASES:
         kind, kw = CASES[case]
+        shape = _mesh_of(case)
+        mesh = make_mesh(jax.devices()[:4], data=shape[0], fsdp=shape[1], model=shape[2])
         make = (functools.partial(ServingEngine, max_len=256) if kind == "slot"
                 else functools.partial(PagedServingEngine, max_len=256, page_size=8))
-        eng = make(jcfg, shard_params(setup["jp"], mesh), max_batch=4, attn_impl="xla",
-                   mesh=mesh, **kw)
-        out[case] = _run(eng, _requests(jcfg))
+        params, bits = setup["jp"], kw.get("bits")
+        if bits:
+            params = quantize_params(params, bits=bits, destroy=False)
+        jq.W8A8_MIN_TOKENS, before = W8A8_MIN_TOKENS, jq.W8A8_MIN_TOKENS
+        try:
+            eng = make(jcfg, shard_params(params, mesh), max_batch=4, attn_impl="xla",
+                       mesh=mesh, **{k: v for k, v in kw.items() if k != "bits"})
+            out[case] = _run(eng, _requests(jcfg))
+        finally:
+            jq.W8A8_MIN_TOKENS = before
     return out
 
 
@@ -178,8 +219,11 @@ def test_mesh_engine_matches_one_device_on_every_rank(setup, case):
     for res in setup["ranks"]:
         assert res[case]["tokens"] == want["tokens"]
     # The paged kernels ran on every rank, on its rows, as often as on one
-    # device: once a layer a step.
+    # device: once a layer a step; so did the W8A8 products.
     kw = CASES[case][1]
+    for res in setup["ranks"]:
+        assert res[case]["calls"].get("w8a8", 0) == want["calls"].get("w8a8", 0)
+    assert (want["calls"].get("w8a8", 0) > 0) == ("bits" in kw)
     if CASES[case][0] == "paged":
         name = "carry_paged_attention" + ("_fused" if kw.get("fused") else (
             "_multi" if kw.get("speculative") else "") + ("_q8" if kw.get("kv_quant") else ""))
@@ -197,7 +241,7 @@ def test_mesh_engine_matches_jax_mesh_engine(setup, jax_mesh_tokens, case):
 def test_pools_recycled_on_every_shard(setup, case):
     for res in setup["ranks"]:
         free = res[case]["free"]
-        assert free["shards"] == MESH[0] * MESH[1]
+        assert free["shards"] == _mesh_of(case)[0] * _mesh_of(case)[1]
         assert free["free"] == [free["per_shard"] - 2] * free["shards"]
 
 
@@ -225,4 +269,9 @@ def test_jax_value_errors_and_quantized_refusal(setup):
         errors = res["errors"]
         for name in ("prefix_cache", "chunked_prefill", "lora"):
             assert errors[name] == want[name], name
-        assert "next multi-device slice" in errors["quantized"]
+        # Quantized weights are served over the mesh (their field DTensors
+        # below); multi-LoRA over them still raises JAX's ValueError.
+        assert errors["lora_w8"] == want["lora"]
+        assert set(errors) == {"prefix_cache", "chunked_prefill", "lora", "lora_w8"}
+        assert res["quantized_fields"] == {"lm/layers/o_proj/q": "DTensor",
+                                           "lm/layers/o_proj/scale": "DTensor"}

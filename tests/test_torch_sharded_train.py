@@ -17,6 +17,17 @@ the port's one-device runs (CPU, f32).
 * The stage driver under the group (``--mesh-fsdp 2 --mesh-model 2``,
   ``launch.in_torchrun`` as under torchrun) against its one-device run:
   losses within 1e-5 relative, ``final/`` loadable.
+* LoRA (``lora`` and ``it_lora``, adapters from JAX's ``add_lora`` carried
+  over by ``from_jax_params``, every field perturbed so ``a`` trains from
+  the first step): three steps at ``(1, 2, 2)`` against JAX's sharded step
+  and one device, losses and trained leaves within 1e-5 relative, the
+  frozen base bit-equal; ``Trainer`` over the group resumes bit-exactly and
+  its ``adapters.safetensors`` equals one device's within 1e-5; a LoRA over
+  an int8 base (``W8A8_MIN_TOKENS`` lowered to 16, so every decoder product
+  takes the W8A8 path, row-parallel ones reduced over ``model``) gets a
+  non-zero gradient through the base, within 1e-3 of one device's; the
+  ``it --lora-enable`` driver under the group writes ``adapters.safetensors``
+  and a merged ``final/`` equal to one device's within 1e-5.
 
 Rank bodies import no JAX; the JAX side runs in the test process.
 """
@@ -65,9 +76,12 @@ def _leaves_np(params):
             for p, t in named_leaves(params)}
 
 
-def _port_steps(np_params, samples, mesh_shape, *, offload=False, n=3):
-    """n steps of the port's stage-3 step; one device when ``mesh_shape`` is
-    None. Returns (losses, grad norms, every leaf after)."""
+def _port_steps(np_params, samples, mesh_shape, *, offload=False, n=3, stage=STAGE,
+                quant_bits=None):
+    """n steps of the port's step for ``stage`` (the stage-3 one by
+    default); one device when ``mesh_shape`` is None; ``quant_bits``
+    quantizes the tree first (LoRA over a quantized base). Returns (losses,
+    grad norms, every leaf after)."""
     import contextlib
 
     from vcoder_tpu_torch.checkpoint import from_jax_params
@@ -84,6 +98,16 @@ def _port_steps(np_params, samples, mesh_shape, *, offload=False, n=3):
 
     cfg = VCoderConfig.tiny("vcoder_ds_llava")
     params = from_jax_params(np_params, cfg, device="cpu")
+    if quant_bits:
+        from vcoder_tpu_torch.lora import LoraWeight
+        from vcoder_tpu_torch.quant import quantize_params
+
+        layers = params["lm"]["layers"]
+        bases = quantize_params({"lm": {"layers": {k: v.base for k, v in layers.items()
+                                                   if isinstance(v, LoraWeight)}}},
+                                bits=quant_bits)["lm"]["layers"]
+        for k, base in bases.items():
+            layers[k].base = base
     batch = collate_batch(samples, device="cpu", **_collate_kw(cfg))
     opt = tstep.make_optimizer(1e-2, 10)
     ctx, sh = contextlib.nullcontext(), None
@@ -92,12 +116,12 @@ def _port_steps(np_params, samples, mesh_shape, *, offload=False, n=3):
         shard_params(params, mesh)
         batch = shard_batch(batch, mesh)
         ctx = use_mesh(mesh)
-    state = tstep.init_opt_state(params, opt, STAGE)
+    state = tstep.init_opt_state(params, opt, stage)
     if offload:
         host = host_shardings(state, mesh)
         state = {k: host[k].place(tstep._local(t)) for k, t in state.items()}
         sh = (device_shardings_like(host), host)
-    step = tstep.make_train_step(cfg, opt, stage=STAGE, attn_impl="auto", remat="dots",
+    step = tstep.make_train_step(cfg, opt, stage=stage, attn_impl="auto", remat="dots",
                                  offload_shardings=sh)
     losses, norms = [], []
     with ctx:
@@ -109,7 +133,7 @@ def _port_steps(np_params, samples, mesh_shape, *, offload=False, n=3):
     return losses, norms, _leaves_np(params)
 
 
-def _trainer_run(np_params, out, mesh_shape, steps, resume):
+def _trainer_run(np_params, out, mesh_shape, steps, resume, stage=STAGE):
     import contextlib
 
     import chip_smoke
@@ -125,7 +149,7 @@ def _trainer_run(np_params, out, mesh_shape, steps, resume):
         mesh = make_mesh(data=mesh_shape[0], fsdp=mesh_shape[1], model=mesh_shape[2])
     rows = mesh.row_shards if mesh else 1
     args = TrainArgs(output_dir=out, per_device_train_batch_size=4 // rows, save_steps=2,
-                     learning_rate=1e-2, dataloader_workers=0, attn_impl="auto")
+                     learning_rate=1e-2, dataloader_workers=0, attn_impl="auto", stage=stage)
     with use_mesh(mesh) if mesh else contextlib.nullcontext():
         tr = Trainer(cfg, params, chip_smoke.DSSamples(16, cfg.vision.image_size), args,
                      mesh=mesh, device="cpu")
@@ -136,13 +160,48 @@ def _trainer_run(np_params, out, mesh_shape, steps, resume):
                 leaves=_leaves_np(tr.params))
 
 
-def _rank_body(rank, world, np_params, samples, out_dir):
+LORA_STAGES = ("lora", "it_lora")
+W8A8_MIN_TOKENS = 16
+
+
+def _lora_int8_steps(np_lora, samples, mesh_shape, base_dx=True):
+    """Two ``it_lora`` steps over the int8 base with the W8A8 threshold
+    lowered: (losses, grad norms, leaves, W8A8 products run).
+    ``base_dx=False`` zeroes the base products' input gradient (what the
+    W8A8 product's round() would give without its straight-through
+    backward)."""
+    from vcoder_tpu_torch.ops import quant as tq
+
+    calls = []
+    w8a8 = tq.w8a8_matmul
+    tq.W8A8_MIN_TOKENS, before = W8A8_MIN_TOKENS, tq.W8A8_MIN_TOKENS
+    tq.w8a8_matmul = lambda *a, **k: (calls.append(1), w8a8(*a, **k))[1]
+    backward = tq._W8A8Matmul.backward
+    if not base_dx:
+        tq._W8A8Matmul.backward = staticmethod(
+            lambda ctx, g: (torch.zeros(*g.shape[:-1], ctx.saved_tensors[0].shape[0]),
+                            None, None, None))
+    try:
+        out = _port_steps(np_lora, samples, mesh_shape, n=2, stage="it_lora", quant_bits=8)
+    finally:
+        tq.W8A8_MIN_TOKENS, tq.w8a8_matmul = before, w8a8
+        tq._W8A8Matmul.backward = backward
+    return (*out, len(calls))
+
+
+def _rank_body(rank, world, np_params, np_lora, samples, out_dir):
     torch.set_num_threads(1)
     res = {"resident": _port_steps(np_params, samples, MESH),
            "offloaded": _port_steps(np_params, samples, MESH, offload=True)}
     res["trainer"] = _trainer_run(np_params, os.path.join(out_dir, "mesh"), MESH, 3, False)
     res["resumed"] = _trainer_run(np_params, os.path.join(out_dir, "mesh"), MESH, 3, True)
     res["fresh"] = _trainer_run(np_params, os.path.join(out_dir, "mesh2"), MESH, 3, False)
+    for stage in LORA_STAGES:
+        res[stage] = _port_steps(np_lora, samples, MESH, stage=stage)
+    res["lora_int8"] = _lora_int8_steps(np_lora, samples, MESH)
+    lora_dir = os.path.join(out_dir, "lora_mesh")
+    res["lora_trainer"] = _trainer_run(np_lora, lora_dir, MESH, 3, False, stage="lora")
+    res["lora_resumed"] = _trainer_run(np_lora, lora_dir, MESH, 3, True, stage="lora")
     return res
 
 
@@ -153,20 +212,31 @@ def setup(tmp_path_factory):
     from vcoder_tpu.config import VCoderConfig as JConfig
     from vcoder_tpu.models import vcoder as jvcoder
 
+    from vcoder_tpu.lora import add_lora
+
     jcfg = JConfig.tiny("vcoder_ds_llava")
     jp = jvcoder.init_vcoder_params(jax.random.PRNGKey(0), jcfg)
     rng = np.random.RandomState(0)
     np_params = jax.tree.map(
         lambda a: np.asarray(a) + 0.05 * rng.randn(*a.shape).astype(np.float32), jp)
+    # JAX's adapters over the same weights, every field perturbed (b too).
+    np_lora = jax.tree.map(
+        lambda a: np.asarray(a) + 0.05 * rng.randn(*a.shape).astype(np.float32),
+        add_lora(jp, jax.random.PRNGKey(5), rank=8, alpha=16.0))
     samples = _samples(jcfg)
     out_dir = str(tmp_path_factory.mktemp("sharded_train"))
-    ranks = launch.spawn(_rank_body, 4, np_params, samples, out_dir, timeout_s=300)
-    return dict(jcfg=jcfg, np_params=np_params, samples=samples, out_dir=out_dir, ranks=ranks)
+    ranks = launch.spawn(_rank_body, 4, np_params, np_lora, samples, out_dir, timeout_s=300)
+    return dict(jcfg=jcfg, np_params=np_params, np_lora=np_lora, samples=samples,
+                out_dir=out_dir, ranks=ranks)
 
 
 @pytest.fixture(scope="module")
 def jax_sharded(setup):
     """JAX's sharded step, three times, on (1, 2, 2) of its CPU devices."""
+    return _jax_steps(setup, setup["np_params"], STAGE)
+
+
+def _jax_steps(setup, np_params, stage):
     import jax
 
     from vcoder_tpu.models import vcoder as jvcoder  # noqa: F401
@@ -177,11 +247,11 @@ def jax_sharded(setup):
 
     jcfg = setup["jcfg"]
     mesh = make_mesh(jax.devices()[:4], data=MESH[0], fsdp=MESH[1], model=MESH[2])
-    params = shard_params(jax.tree.map(jax.numpy.asarray, setup["np_params"]), mesh)
+    params = shard_params(jax.tree.map(jax.numpy.asarray, np_params), mesh)
     batch = shard_batch(collate_batch(setup["samples"], as_jnp=True, **_collate_kw(jcfg)), mesh)
     opt = jstep.make_optimizer(1e-2, total_steps=10)
-    state = jstep.init_opt_state(params, opt, STAGE)
-    step = jstep.make_train_step(jcfg, opt, stage=STAGE, attn_impl="xla", remat=False)
+    state = jstep.init_opt_state(params, opt, stage)
+    step = jstep.make_train_step(jcfg, opt, stage=stage, attn_impl="xla", remat=False)
     losses = []
     for _ in range(3):
         params, state, m = step(params, state, batch)
@@ -198,6 +268,89 @@ def one_device(setup):
 
 def _rel(a, b):
     return float(np.abs(np.asarray(a) - np.asarray(b)).max() / (np.abs(b).max() + 1e-12))
+
+
+def _leaf(tree, path):
+    import dataclasses
+
+    for k in path.split("/"):
+        if isinstance(tree, list):
+            tree = tree[int(k)]
+        elif dataclasses.is_dataclass(tree):
+            tree = getattr(tree, k)
+        else:
+            tree = tree[k]
+    return np.asarray(tree)
+
+
+@pytest.mark.parametrize("stage", LORA_STAGES)
+def test_lora_steps_match_jax_and_one_device(setup, stage):
+    import re
+
+    from vcoder_tpu_torch.train.step import STAGE_TRAINABLE
+
+    losses, norms, leaves = setup["ranks"][0][stage]
+    j_losses, j_leaves = _jax_steps(setup, setup["np_lora"], stage)
+    one = _port_steps(setup["np_lora"], setup["samples"], None, stage=stage)
+    np.testing.assert_allclose(losses, j_losses, rtol=1e-5)
+    np.testing.assert_allclose(losses, one[0], rtol=1e-5)
+    np.testing.assert_allclose(norms, one[1], rtol=1e-5)
+    for res in setup["ranks"][1:]:
+        assert res[stage][0] == losses and res[stage][1] == norms
+    trained = [re.compile(p) for p in STAGE_TRAINABLE[stage]]
+    moved = 0
+    for path, got in leaves.items():
+        assert _rel(got, j_leaves[path]) <= 1e-5, path
+        assert _rel(got, one[2][path]) <= 1e-5, path
+        start = _leaf(setup["np_lora"], path)
+        if not any(p.match(path) for p in trained):
+            np.testing.assert_array_equal(got, start, err_msg=path)
+        elif path.endswith(("/a", "/b")):
+            assert np.abs(got - start).max() > 0, path
+            moved += 1
+    assert moved == 14  # a and b of the seven decoder products
+
+
+def test_lora_over_int8_base_gets_gradient_through_it(setup):
+    from vcoder_tpu_torch.checkpoint import from_jax_params
+    from vcoder_tpu_torch.config import VCoderConfig
+    from vcoder_tpu_torch.train.step import trainable_leaves
+
+    losses, norms, leaves, w8a8 = setup["ranks"][0]["lora_int8"]
+    one = _lora_int8_steps(setup["np_lora"], setup["samples"], None)
+    blind = _lora_int8_steps(setup["np_lora"], setup["samples"], None, base_dx=False)
+    assert w8a8 > 0 and one[3] > 0
+    np.testing.assert_allclose(losses, one[0], rtol=1e-3)
+    np.testing.assert_allclose(norms, one[1], rtol=1e-3)
+    # The seg projector feeds the decoder's input: its gradient takes the
+    # base products' dx through their straight-through backward, over the
+    # mesh as on one device; zeroing that dx moves it.
+    tree = from_jax_params(setup["np_lora"], VCoderConfig.tiny("vcoder_ds_llava"), device="cpu")
+    seg = [1 + i for i, p in enumerate(trainable_leaves(tree, "it_lora"))
+           if p.startswith("seg_projector/")]
+    assert len(seg) == 4 and all(norms[0][i] > 0 for i in seg)
+    gap = max(abs(one[1][0][i] - blind[1][0][i]) / one[1][0][i] for i in seg)
+    assert gap > 1e-2, gap
+    for p in (p for p in leaves if p.startswith("seg_projector/")):
+        assert _rel(leaves[p], one[2][p]) <= 1e-3, p
+
+
+def test_lora_trainer_resumes_and_writes_adapters(setup, tmp_path):
+    from vcoder_tpu_torch.checkpoint import read_safetensors
+
+    res = setup["ranks"][0]
+    ref = _trainer_run(setup["np_lora"], str(tmp_path / "one"), None, 3, False, stage="lora")
+    np.testing.assert_allclose(res["lora_trainer"]["losses"], ref["losses"], rtol=1e-5)
+    assert res["lora_resumed"]["resumed"] and res["lora_resumed"]["step"] == 3
+    np.testing.assert_allclose(res["lora_resumed"]["losses"], res["lora_trainer"]["losses"][2:],
+                               rtol=1e-6)
+    for path, got in res["lora_resumed"]["leaves"].items():
+        np.testing.assert_array_equal(got, res["lora_trainer"]["leaves"][path], err_msg=path)
+    got = read_safetensors(os.path.join(setup["out_dir"], "lora_mesh", "adapters.safetensors"))
+    want = read_safetensors(str(tmp_path / "one" / "adapters.safetensors"))
+    assert set(got) == set(want) and any(k.endswith("/a") for k in got)
+    for k in want:
+        assert _rel(got[k].numpy(), want[k].numpy()) <= 1e-5, k
 
 
 def test_every_rank_reports_the_same(setup):
@@ -272,15 +425,18 @@ def test_trainer_over_the_group_checkpoints_and_resumes(setup, tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def _driver_body(rank, world, argv):
+def _driver_body(rank, world, runs):
     import vcoder_tpu_torch.builder as tb
     from vcoder_tpu_torch.train import drivers as tdrv
 
     torch.set_num_threads(1)
     tb.load_pretrained_model = functools.partial(tb.load_pretrained_model, dtype=torch.float32)
     assert launch.in_torchrun()
-    tr = tdrv.run_stage(STAGE, tdrv.build_arg_parser().parse_args(argv))
-    return dict(step=tr.step, shape=tr.mesh.shape)
+    out = []
+    for stage, argv in runs:
+        tr = tdrv.run_stage(stage, tdrv.build_arg_parser().parse_args(argv))
+        out.append(dict(step=tr.step, shape=tr.mesh.shape))
+    return out
 
 
 def test_stage_driver_under_the_group(tmp_path, monkeypatch):
@@ -311,15 +467,18 @@ def test_stage_driver_under_the_group(tmp_path, monkeypatch):
 
     monkeypatch.setattr(tb, "load_pretrained_model",
                         functools.partial(load_pretrained_model, dtype=torch.float32))
-    one = str(tmp_path / "one")
-    tdrv.run_stage(STAGE, tdrv.build_arg_parser().parse_args(
-        argv(one, 2, ["--mesh-data", "1", "--mesh-fsdp", "1", "--mesh-model", "1"])))
-    mesh_out = str(tmp_path / "mesh")
-    res = launch.spawn(_driver_body, 4, argv(mesh_out, 1, ["--mesh-fsdp", "2",
-                                                          "--mesh-model", "2"]),
-                       timeout_s=240)
-    assert [r["step"] for r in res] == [2] * 4
-    assert res[0]["shape"] == {"data": 1, "fsdp": 2, "model": 2}
+    lora = ["--lora-enable", "--lora-r", "4", "--lora-alpha", "8"]
+    one, one_lora = str(tmp_path / "one"), str(tmp_path / "one_lora")
+    single = ["--mesh-data", "1", "--mesh-fsdp", "1", "--mesh-model", "1"]
+    tdrv.run_stage(STAGE, tdrv.build_arg_parser().parse_args(argv(one, 2, single)))
+    tdrv.run_stage("it", tdrv.build_arg_parser().parse_args(argv(one_lora, 2, single + lora)))
+    mesh_out, mesh_lora = str(tmp_path / "mesh"), str(tmp_path / "mesh_lora")
+    split = ["--mesh-fsdp", "2", "--mesh-model", "2"]
+    res = launch.spawn(_driver_body, 4, [(STAGE, argv(mesh_out, 1, split)),
+                                         ("it", argv(mesh_lora, 1, split + lora))],
+                       timeout_s=300)
+    assert [r["step"] for rank in res for r in rank] == [2] * 8
+    assert res[0][0]["shape"] == {"data": 1, "fsdp": 2, "model": 2}
 
     def losses(out):
         with open(os.path.join(out, "metrics.jsonl")) as f:
@@ -335,3 +494,25 @@ def test_stage_driver_under_the_group(tmp_path, monkeypatch):
     assert set(got) == set(want)
     for path in want:
         assert _rel(got[path], want[path]) <= 1e-5, path
+    # --lora-enable under the group: the same adapters (drawn whole from
+    # seed + 17, then sharded), losses, adapters.safetensors and merged
+    # final/ as one device.
+    from vcoder_tpu_torch.checkpoint import read_safetensors
+
+    np.testing.assert_allclose(losses(mesh_lora), losses(one_lora), rtol=1e-5)
+    a_got = read_safetensors(os.path.join(mesh_lora, "adapters.safetensors"))
+    a_want = read_safetensors(os.path.join(one_lora, "adapters.safetensors"))
+    assert set(a_got) == set(a_want) and "lm/layers/down_proj/a" in a_want
+    for k in a_want:
+        # b (and the projector biases) start at zero here, and Adam's first
+        # updates divide each gradient by its own magnitude: the f32 partial
+        # sums over model, added in another order, read up to ~5e-5 there.
+        assert _rel(a_got[k].numpy(), a_want[k].numpy()) <= 1e-4, k
+    _, model, *_ = load_pretrained_model(os.path.join(mesh_lora, "final"), device="cpu",
+                                         dtype=torch.float32)
+    _, ref, *_ = load_pretrained_model(os.path.join(one_lora, "final"), device="cpu",
+                                       dtype=torch.float32)
+    got, want = _leaves_np(model.params), _leaves_np(ref.params)
+    assert set(got) == set(want) and "lm/layers/q_proj" in want  # merged: plain weights
+    for path in want:  # biases that start at zero as b does: 1e-4, as above
+        assert _rel(got[path], want[path]) <= 1e-4, path

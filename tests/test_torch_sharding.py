@@ -5,7 +5,9 @@ JAX package on the CPU.
 
 * Every leaf's spec after ``_shrink_to_fit`` equals JAX's ``param_shardings``
   spec on the same mesh shapes (tiny configs, where the rule drops axes),
-  and the DTensor placements say the same thing.
+  and the DTensor placements say the same thing; so does every field of
+  quantized (int8, int4), LoRA (over plain and int8 weights) and multi-LoRA
+  trees, field by field.
 * One group of 4 gloo ranks (``launch.spawn``, with a deadline) checks the
   rest at mesh ``(1, 2, 2)`` and ``(2, 1, 2)``: ``make_mesh`` over the group
   and its errors, ``shard_params`` (each rank's local shape, the gathered
@@ -14,8 +16,12 @@ JAX package on the CPU.
   rows and heads against JAX's ``sharded_flash_attention`` in interpret
   mode and the plain oracle, and the plain route or unsplit heads where
   JAX returns ``None`` (mirrors ``test_sharded_attention.py``),
-  the model-axis collectives with their gradients, and the
-  ``NotImplementedError`` for quantized and LoRA-wrapped leaves.
+  the model-axis collectives with their gradients, and the wrapped trees
+  above sharded field by field (each rank's local fields bit-equal to
+  slices of the whole fields, cut from the specs); at ``(1, 2, 2)``
+  ``load_pretrained_model(load_4bit|load_8bit, place=leaf_sharder)``,
+  ``init_quantized_params(place=)`` and ``quantize_params`` over a sharded
+  tree against the one-device tree, gathered.
 * ``spawn`` reports a failing rank and kills a hung one at its deadline.
 
 Rank bodies import no JAX; the JAX side runs in the test process on 4 of
@@ -63,6 +69,29 @@ def _tiny_params_np():
     return jax.tree.map(np.asarray, jp)
 
 
+WRAPPED = ("int8", "int4", "lora", "lora_int8", "multi_lora")
+
+
+@functools.lru_cache(maxsize=1)
+def _wrapped_np():
+    """JAX's wrapped trees of the tiny model (numpy leaves): quantized at 8
+    and 4 bits, LoRA over the plain and the int8 weights, and the
+    multi-LoRA serving tree of two adapters."""
+    import jax
+
+    from vcoder_tpu.lora import add_lora, extract_adapters, stack_adapters
+    from vcoder_tpu.quant import quantize_params
+
+    jp = jax.tree.map(jax.numpy.asarray, _tiny_params_np())
+    q8 = quantize_params(jp, bits=8, destroy=False)
+    lora = add_lora(jp, jax.random.PRNGKey(1), rank=8)
+    trees = dict(int8=q8, int4=quantize_params(jp, bits=4, destroy=False), lora=lora,
+                 lora_int8=add_lora(q8, jax.random.PRNGKey(2), rank=8))
+    other = extract_adapters(add_lora(jp, jax.random.PRNGKey(3), rank=4))
+    trees["multi_lora"] = stack_adapters(jp, {"x": extract_adapters(lora), "y": other}, 4)[0]
+    return {k: jax.tree.map(np.asarray, v) for k, v in trees.items()}
+
+
 # ---------------------------------------------------------------------------
 # Rules (no process group needed: a plain mesh carries the axis sizes)
 # ---------------------------------------------------------------------------
@@ -96,6 +125,30 @@ def test_param_specs_match_jax(shape):
             dims = [j for j, names in enumerate(spec) if names and axis in
                     (names if isinstance(names, tuple) else (names,))]
             assert placements[i] == (Shard(dims[0]) if dims else Replicate()), (path, axis)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kind", WRAPPED)
+def test_wrapped_param_specs_match_jax(kind, shape):
+    import jax
+
+    from vcoder_tpu.parallel import make_mesh as jmake
+    from vcoder_tpu.parallel.sharding import _path_str, param_shardings
+    from vcoder_tpu_torch.checkpoint import from_jax_params
+    from vcoder_tpu_torch.config import VCoderConfig
+
+    tree = _wrapped_np()[kind]
+    n = int(np.prod(shape))
+    jm = jmake(jax.devices()[:n], data=shape[0], fsdp=shape[1], model=shape[2])
+    want = {_path_str(p): tuple(s.spec) for p, s in
+            jax.tree_util.tree_flatten_with_path(param_shardings(tree, jm))[0]}
+    tm = tmesh.make_mesh(["cpu"] * n, data=shape[0], fsdp=shape[1], model=shape[2])
+    tp = from_jax_params(tree, VCoderConfig.tiny("vcoder_ds_llava"), device="cpu")
+    got = tsh.param_specs(tp, tm)
+    assert got == want
+    fields = {"int8": "/scale", "int4": "/q", "lora": "/a", "lora_int8": "/base/q",
+              "multi_lora": "/idx"}[kind]
+    assert any(p.endswith(fields) for p in got)
 
 
 def test_rules_are_jax_copies():
@@ -135,13 +188,61 @@ def _routes():
         tfa.flash_attention, ta.xla_attention = flash, plain
 
 
-def _group_body(rank, world, np_params, att):
+def _slice_of(t, spec, m):
+    """The slice of ``t`` a rank at ``m``'s coordinates holds under
+    ``spec`` (axes on one dimension data-major), cut here from the spec."""
+    idx = []
+    for j, names in enumerate(tuple(spec) + (None,) * (t.ndim - len(spec))):
+        names = () if names is None else names if isinstance(names, tuple) else (names,)
+        parts, at = 1, 0
+        for nm in names:
+            at = at * m.shape[nm] + m.local_rank(nm)
+            parts *= m.shape[nm]
+        n = t.shape[j] // parts
+        idx.append(slice(at * n, (at + 1) * n))
+    return t[tuple(idx)]
+
+
+def _quantized_loads(m, ckpt):
+    """Each quantized load or draw placed leaf by leaf over ``m``, against
+    the one-device tree: every field a DTensor, gathered equal."""
+    from vcoder_tpu_torch.builder import load_pretrained_model
+    from vcoder_tpu_torch.config import VCoderConfig
+    from vcoder_tpu_torch.models.vcoder import init_vcoder_params
+    from vcoder_tpu_torch.quant import init_quantized_params, quantize_params
+    from vcoder_tpu_torch.tree import named_leaves
+
+    def same(tree, ref):
+        got, want = dict(named_leaves(tree)), dict(named_leaves(ref))
+        return sorted(got) == sorted(want) and all(
+            type(t).__name__ == "DTensor" and torch.equal(t.full_tensor(), want[p])
+            for p, t in got.items())
+
+    out = {}
+    for flag in ("load_4bit", "load_8bit"):
+        kw = dict(device="cpu", dtype=torch.float32, **{flag: True})
+        placed = load_pretrained_model(ckpt, place=tsh.leaf_sharder(m), **kw)[1].params
+        out[flag] = same(placed, load_pretrained_model(ckpt, **kw)[1].params)
+        out[flag + "_wrapped"] = type(placed["lm"]["layers"]["down_proj"]).__name__
+    cfg = VCoderConfig.tiny("vcoder_ds_llava")
+    kw = dict(seed=3, dtype=torch.float32, device="cpu")
+    out["init_quantized"] = same(init_quantized_params(cfg, 4, place=tsh.leaf_sharder(m), **kw),
+                                 init_quantized_params(cfg, 4, **kw))
+    # A sharded tree quantized in place: each leaf gathered a layer at a time.
+    sharded = tsh.shard_params(init_vcoder_params(cfg, **kw), m)
+    out["quantize_sharded"] = same(
+        quantize_params(sharded, bits=8, destroy=False, place=tsh.leaf_sharder(m)),
+        quantize_params(init_vcoder_params(cfg, **kw), bits=8))
+    return out
+
+
+def _group_body(rank, world, np_params, att, wrapped_np, ckpt):
     """Everything that needs the process group, at two mesh shapes."""
     from torch.distributed.tensor import DTensor
 
     from vcoder_tpu_torch.checkpoint import from_jax_params
     from vcoder_tpu_torch.config import VCoderConfig
-    from vcoder_tpu_torch.lora import LoraWeight
+    from vcoder_tpu_torch.lora import LoraWeight, merge_lora
     from vcoder_tpu_torch.ops.attention import multi_head_attention
     from vcoder_tpu_torch.ops.quant import QuantizedTensor
     from vcoder_tpu_torch.parallel import spmd
@@ -218,15 +319,54 @@ def _group_body(rank, world, np_params, att):
             spmd.copy_to_model(y).sum().backward()
             res["copy_grad"] = y.grad.numpy()
             res["rows"] = spmd.gather_rows(torch.tensor([m.row_index])).tolist()
-        # Quantized and LoRA leaves over a mesh: the next slice.
-        for name, leaf in (("quant", QuantizedTensor(torch.zeros(4, 2, dtype=torch.int8),
-                                                      torch.ones(1, 2), 8)),
-                           ("lora", LoraWeight(torch.zeros(4, 4), torch.zeros(4, 2),
-                                               torch.zeros(2, 4), 1.0))):
-            try:
-                tsh.shard_params({"lm": {"lm_head": leaf}}, m)
-            except NotImplementedError as e:
-                res[f"refused_{name}"] = str(e)
+        # Quantized and LoRA-wrapped trees: every field a DTensor whose
+        # local part is the slice its spec gives, and whole when gathered.
+        res["wrapped"] = {}
+        for kind, tree in wrapped_np.items():
+            tp = from_jax_params(tree, cfg, device="cpu")
+            lora_leaves = [w for _, w in tsh._leaves(tp) if isinstance(w, LoraWeight)]
+            for w in lora_leaves:  # B non-zero, so a merge folds something
+                w.b.copy_(torch.linspace(-0.1, 0.1, w.b.numel()).reshape(w.b.shape))
+            merged_one = dict(named_leaves(merge_lora(tp))) if lora_leaves else None
+            whole = {p: t.clone() for p, t in named_leaves(tp)}
+            specs = tsh.param_specs(tp, m)
+            tsh.shard_params(tp, m)
+            sharded = dict(named_leaves(tp))
+            res["wrapped"][kind] = dict(
+                types=sorted({type(v).__name__ for _, v in tsh._leaves(tp)}),
+                all_dtensors=all(isinstance(t, DTensor) for t in sharded.values()),
+                slices_equal=all(torch.equal(t.to_local(), _slice_of(whole[p], specs[p], m))
+                                 for p, t in sharded.items()),
+                gathered_equal=all(torch.equal(t.full_tensor(), whole[p])
+                                   for p, t in sharded.items()),
+                some_split=any(t.to_local().numel() < t.numel() for p, t in sharded.items()
+                               if p.rsplit("/", 1)[-1] in ("q", "scale", "a", "b")))
+            if lora_leaves:
+                # Merged over the mesh: each leaf placed as its stored base,
+                # gathered equal to one device's merge.
+                stored = {path: (w.base.q if isinstance(w.base, QuantizedTensor) else w.base)
+                          for path, w in tsh._leaves(tp) if isinstance(w, LoraWeight)}
+                merged = dict(named_leaves(merge_lora(tp)))
+                res["wrapped"][kind].update(
+                    merged_placed=all(isinstance(merged[p], DTensor)
+                                      and merged[p].placements == t.placements
+                                      for p, t in stored.items()),
+                    merged_equal=all(torch.equal(merged[p].full_tensor(), merged_one[p])
+                                     for p in stored),
+                    merged_moved=any(not torch.equal(merged_one[p], whole[f"{p}/base"])
+                                     for p in stored if f"{p}/base" in whole))
+        try:
+            tsh.shard_params({"lm": {"lm_head": object()}}, m)
+        except TypeError as e:
+            res["refused_object"] = str(e)
+        # A wrapper made on the fly, placed by its weight's rule.
+        qt = tsh.shard_leaf("lm/lm_head", QuantizedTensor(
+            torch.zeros(8, 4, dtype=torch.int8), torch.ones(1, 4), 4), m)
+        lw = tsh.shard_leaf("lm/layers/o_proj", LoraWeight(
+            torch.zeros(2, 4, 4), torch.zeros(2, 4, 2), torch.zeros(2, 2, 4), 1.0), m)
+        res["on_the_fly"] = (tuple(qt.q.placements), tuple(lw.a.placements), qt.bits, lw.scale)
+        if shape == (1, 2, 2):
+            res["quantized_loads"] = _quantized_loads(m, ckpt)
         assert isinstance(params["lm"]["norm"], DTensor)
         # Seeded leaf by leaf (each leaf sharded as it is drawn) against the
         # whole tree sharded after: the same shards and placements.
@@ -246,11 +386,17 @@ def _group_body(rank, world, np_params, att):
 
 
 @pytest.fixture(scope="module")
-def group():
+def group(tmp_path_factory):
+    from vcoder_tpu_torch.checkpoint import from_jax_params, save_pretrained
+    from vcoder_tpu_torch.config import VCoderConfig
+
     np_params = _tiny_params_np()
     att = _attn_inputs()
+    cfg = VCoderConfig.tiny("vcoder_ds_llava")
+    ckpt = str(tmp_path_factory.mktemp("ckpt") / "vcoder_ds_llava-tiny")
+    save_pretrained(ckpt, from_jax_params(np_params, cfg, device="cpu"), cfg)
     t0 = time.time()
-    res = launch.spawn(_group_body, 4, np_params, att, timeout_s=240)
+    res = launch.spawn(_group_body, 4, np_params, att, _wrapped_np(), ckpt, timeout_s=240)
     return dict(res=res, np_params=np_params, att=att, seconds=time.time() - t0)
 
 
@@ -284,8 +430,38 @@ def test_shard_params_keeps_each_ranks_slice(group, shape):
                 for nm in (names if isinstance(names, tuple) else (names,)) if names else ():
                     want[j] //= m.shape[nm]
             assert res["local_shapes"][path] == tuple(want), path
-        assert "next multi-device slice" in res["refused_quant"]
-        assert "next multi-device slice" in res["refused_lora"]
+        # Quantized and LoRA-wrapped leaves are placed field by field.
+        for kind in WRAPPED:
+            w = res["wrapped"][kind]
+            assert w["all_dtensors"] and w["slices_equal"] and w["gathered_equal"], kind
+            assert w["some_split"], kind
+        assert res["wrapped"]["lora_int8"]["types"] == ["DTensor", "LoraWeight", "QuantizedTensor"]
+        assert res["wrapped"]["multi_lora"]["types"] == ["DTensor", "MultiLoraWeight"]
+        assert "cannot be placed on a mesh" in res["refused_object"]
+        q_pl, a_pl, bits, scale = res["on_the_fly"]
+        assert (bits, scale) == (4, 1.0)
+        # lm_head (fsdp, model) over packed [4, 4]; o_proj's a (None, model, fsdp).
+        assert [str(p) for p in q_pl] == ["R", "S(0)", "S(1)"]
+        assert [str(p) for p in a_pl][2] == "S(1)"
+    if shape == (1, 2, 2):
+        for out in group["res"]:
+            loads = out[shape]["quantized_loads"]
+            assert loads == {"load_4bit": True, "load_8bit": True, "init_quantized": True,
+                             "quantize_sharded": True, "load_4bit_wrapped": "QuantizedTensor",
+                             "load_8bit_wrapped": "QuantizedTensor"}
+
+
+@pytest.mark.parametrize("kind", ["lora", "lora_int8"])
+@pytest.mark.parametrize("shape", [(1, 2, 2), (2, 1, 2)], ids=["1x2x2", "2x1x2"])
+def test_merge_lora_over_the_mesh_equals_one_device(group, shape, kind):
+    """``merge_lora`` of a sharded LoRA tree (B non-zero; a plain and an
+    int8 base): each merged leaf is placed as its stored base was, and
+    gathered it equals one device's merge bit for bit."""
+    for out in group["res"]:
+        w = out[shape]["wrapped"][kind]
+        assert w["merged_placed"] and w["merged_equal"], (shape, kind)
+        if kind == "lora":
+            assert w["merged_moved"]
 
 
 @pytest.mark.parametrize("shape", [(1, 2, 2), (2, 1, 2)], ids=["1x2x2", "2x1x2"])

@@ -9,7 +9,9 @@ with the same name-based gating of the seg/depth processors and the same
 ``context_len``. The model lives on ``device`` (CUDA by default; raises when
 CUDA is absent unless ``device="cpu"``). ``load_8bit`` / ``load_4bit``
 quantize the large matmul weights on the device after loading
-(``quant.quantize_params``, as ``vcoder_tpu/builder.py:203-206``).
+(``quant.quantize_params``, as ``vcoder_tpu/builder.py:203-206``); with
+``place=`` each leaf is loaded, quantized whole and placed before the next
+(``quant.leaf_quantizer``).
 
 With a ``model_base`` (``vcoder_tpu/builder.py:172-199``): a directory whose
 model name says "lora" is a PEFT LoRA checkpoint, merged into the base
@@ -31,7 +33,7 @@ from vcoder_tpu_torch.config import VCoderConfig
 from vcoder_tpu_torch.device import resolve_device
 from vcoder_tpu_torch.mm_tokens import get_model_name_from_path
 from vcoder_tpu_torch.preprocess import CLIP_IMAGE_MEAN, process_images
-from vcoder_tpu_torch.quant import quantize_params
+from vcoder_tpu_torch.quant import leaf_quantizer, quantize_params
 
 
 class VCoderImageProcessor:
@@ -155,11 +157,12 @@ def load_pretrained_model(
     """Load a local HF-format VCoder/LLaVA checkpoint directory onto
     ``device``. ``place(path, leaf)`` takes each leaf as it reaches the
     device (over a mesh, ``parallel.leaf_sharder``: a rank keeps its shards
-    and holds one whole leaf at a time)."""
+    and holds one whole leaf at a time; with ``load_8bit`` / ``load_4bit``
+    each leaf is quantized whole before it is placed)."""
     dev = resolve_device(device)
-    if place is not None and (load_8bit or load_4bit):
-        raise NotImplementedError("quantized weights over a mesh belong to the port's next "
-                                  "multi-device slice")
+    bits = 8 if load_8bit else 4 if load_4bit else None
+    if place is not None and bits:
+        place, bits = leaf_quantizer(bits, place), None
     if model_name is None:
         model_name = get_model_name_from_path(model_path)
     if model_base is not None and "lora" in model_name.lower():
@@ -178,8 +181,8 @@ def load_pretrained_model(
                                          place=place)
     else:
         cfg, params = load_hf_checkpoint(model_path, dtype=dtype, device=dev, place=place)
-    if load_8bit or load_4bit:
-        params = quantize_params(params, bits=8 if load_8bit else 4)
+    if bits:
+        params = quantize_params(params, bits=bits)
 
     if tokenizer is None:
         tokenizer = _load_tokenizer(model_path)

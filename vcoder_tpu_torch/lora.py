@@ -17,6 +17,13 @@ port's path convention (dict keys and list indices joined by ``/``, as
 of its tensors, so ``{k: v[l] for k, v in layers.items()}`` gives one layer's
 weights. :func:`set_row_adapter` writes the index IN PLACE (the JAX package
 returns a new tree); every view of it sees the write.
+
+Over a distributed mesh (``parallel/sharding.py``) a wrapper's fields are
+DTensors. :func:`add_lora` draws each ``a`` whole from the same generator
+as on one device and hands each new wrapper to ``place`` (``leaf_sharder``)
+before the next; :func:`merge_lora` gathers one layer's fields at a time,
+folds them and keeps this rank's block of the merged weight;
+:func:`extract_adapters` gathers one adapter at a time.
 """
 
 from __future__ import annotations
@@ -44,6 +51,20 @@ DEFAULT_TARGETS = [
 
 def _device(w) -> torch.device:
     return (w.q if isinstance(w, QuantizedTensor) else w).device
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _whole(t):
+    """A DTensor gathered whole (every rank of its mesh must call), a
+    quantized weight with its fields gathered; anything else as is."""
+    if isinstance(t, QuantizedTensor):
+        return QuantizedTensor(_whole(t.q), _whole(t.scale), t.bits)
+    return t.full_tensor() if _is_dtensor(t) else t
 
 
 @dataclasses.dataclass
@@ -129,12 +150,17 @@ def add_lora(
     alpha: float = 256.0,
     targets: Sequence[str] = tuple(DEFAULT_TARGETS),
     dtype=None,
+    place=None,
 ) -> Any:
     """Wrap matching weight leaves with fresh adapters: A normal scaled by
     ``in**-0.5``, B zero (the adapter starts as the identity). Defaults as
     scripts/v1_5/finetune_lora.sh (rank 128, alpha 256). An already wrapped
     leaf is left as it is. ``generator`` draws the A matrices (its own
-    device's generator: the numbers differ from the JAX package's)."""
+    device's generator: the numbers differ from the JAX package's), each
+    whole, so a sharded base gets the draws of one device.
+    ``place(path, wrapper)`` takes each new wrapper before the next A is
+    drawn (over a mesh, ``parallel.leaf_sharder``: a rank keeps its shards
+    of ``a`` and ``b``)."""
     patterns = [re.compile(p) for p in targets]
 
     def leaf(path, x):
@@ -151,25 +177,79 @@ def add_lora(
         a = torch.randn(lead + (in_dim, rank), generator=generator, device=dev, dtype=dt)
         a = a * torch.tensor(in_dim**-0.5, dtype=dt, device=dev)
         b = torch.zeros(lead + (rank, out_dim), dtype=dt, device=dev)
-        return LoraWeight(base=x, a=a, b=b, scale=float(alpha) / rank)
+        w = LoraWeight(base=x, a=a, b=b, scale=float(alpha) / rank)
+        return w if place is None else place(path, w)
 
     return _map_with_path(params, leaf)
+
+
+def _fold(base, a: torch.Tensor, b: torch.Tensor, scale: float) -> torch.Tensor:
+    """``base + scale * a @ b`` in f32, rounded to the base's dtype (a
+    quantized base dequantized to ``a``'s)."""
+    if isinstance(base, QuantizedTensor):
+        base = dequantize(base, dtype=a.dtype)
+    delta = torch.einsum("...ir,...ro->...io", a.float(), b.float()) * scale
+    return (base.float() + delta).to(base.dtype)
+
+
+def _merged_shard(x: LoraWeight, stored):
+    """This rank's shard of ``x``'s merged weight, a DTensor placed as
+    ``stored`` (the base's stored DTensor): a stacked leaf's layers are
+    gathered whole, folded and cut to this rank's block one at a time."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    # parallel/sharding.py imports this module.
+    from vcoder_tpu_torch.parallel.sharding import local_block, whole_layer
+
+    dm, placements, shape = stored.device_mesh, stored.placements, tuple(x.base.shape)
+    if len(shape) == 2:
+        merged = _fold(_whole(x.base), _whole(x.a), _whole(x.b), x.scale)
+        local = local_block(merged, dm, placements).clone(memory_format=torch.contiguous_format)
+    else:
+        inner = [Shard(p.dim - 1) if p.is_shard() else p for p in placements]
+        local = None
+        for l in range(shape[0]):
+            base = x.base
+            if isinstance(base, QuantizedTensor):
+                base = QuantizedTensor(whole_layer(base.q, l), whole_layer(base.scale, l), base.bits)
+            else:
+                base = whole_layer(base, l)
+            block = local_block(_fold(base, whole_layer(x.a, l), whole_layer(x.b, l), x.scale),
+                                dm, inner)
+            if local is None:
+                local = torch.empty((shape[0], *block.shape), dtype=block.dtype,
+                                    device=block.device)
+            local[l] = block
+    return DTensor.from_local(local, dm, placements, run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def merge_lora(params: Any) -> Any:
     """Fold every LoraWeight into a plain dense weight (PEFT
-    ``merge_and_unload``)."""
+    ``merge_and_unload``). Over a mesh every rank calls this: the merged
+    weight comes back as this rank's shard of it, placed as the stored
+    weight was, built one layer at a time (:func:`_merged_shard`), so a
+    rank holds its shards and one layer's whole fields and f32 transients
+    at a time."""
 
+    @torch.no_grad()
     def leaf(_path, x):
         if not isinstance(x, LoraWeight):
             return x
-        base = x.base
-        if isinstance(base, QuantizedTensor):
-            base = dequantize(base, dtype=x.a.dtype)
-        delta = torch.einsum("...ir,...ro->...io", x.a.float(), x.b.float()) * x.scale
-        return (base.float() + delta).to(base.dtype)
+        stored = x.base.q if isinstance(x.base, QuantizedTensor) else x.base
+        if _is_dtensor(stored):
+            return _merged_shard(x, stored)
+        return _fold(x.base, _whole(x.a), _whole(x.b), x.scale)
 
     return _map_with_path(params, leaf)
+
+
+def lora_partial(x: torch.Tensor, w: LoraWeight, matmul) -> torch.Tensor:
+    """One rank's share of the LoRA term ``scale * (x @ a) @ b`` in a
+    product whose contraction is split over ranks (its input columns, its
+    rows of ``a``, ``b`` whole), ``matmul`` computing the outer product
+    (``spmd.partial_product``: f32 where it has an f32 form)."""
+    return _scalar(w.scale, x.dtype) * matmul(x @ w.a.to(x.dtype), w.b.to(x.dtype))
 
 
 def _scalar(value: float, dtype) -> float:
@@ -198,8 +278,9 @@ def multilora_qmatmul(x: torch.Tensor, w: MultiLoraWeight) -> torch.Tensor:
 
 def extract_adapters(tree: Any) -> Dict[str, Tuple[torch.Tensor, torch.Tensor, float]]:
     """``{path: (a, b, scale)}`` for every LoraWeight of a parameter tree
-    (what :func:`add_lora` or training produce). A dict of that shape passes
-    through unchanged."""
+    (what :func:`add_lora` or training produce), sharded fields gathered
+    whole one adapter at a time (every rank of a mesh calls this). A dict of
+    that shape passes through unchanged."""
     if isinstance(tree, dict) and tree and all(
         isinstance(v, tuple) and len(v) == 3 for v in tree.values()
     ):
@@ -208,7 +289,7 @@ def extract_adapters(tree: Any) -> Dict[str, Tuple[torch.Tensor, torch.Tensor, f
 
     def leaf(path, x):
         if isinstance(x, LoraWeight):
-            out[path] = (x.a, x.b, x.scale)
+            out[path] = (_whole(x.a), _whole(x.b), x.scale)
         return x
 
     _map_with_path(tree, leaf)

@@ -27,7 +27,9 @@
   VCoder-DS-7B's 7.3 B parameters; split over ``model``, any reordering of
   its sums moves the decoder's logits by ~0.05 relative L2 at random
   weights (``scripts/row_split_check.py``); replicated, it computes what
-  the one-device unfused tower computes on the same rows.
+  the one-device unfused tower computes on the same rows. A quantized
+  tower is gathered the same way, field by field (JAX ``clip.py:136-144``),
+  and takes its W8A8 products whole on every rank.
 """
 
 from __future__ import annotations

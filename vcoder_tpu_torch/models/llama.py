@@ -19,6 +19,9 @@
   them and the hidden states gathered back, and the page table's global
   ids are rebased to the rank's pools once a step before the same paged
   kernels run (JAX's ``sharded_*`` wrappers, ``:437-470,638-680``).
+  Quantized and LoRA-wrapped weights split the same way, field by field;
+  the o/down products of a quantized or LoRA weight reduce as
+  ``spmd.row_parallel`` says.
   With ``ops.paged_attention.FUSED_APPEND`` (read at call time) a decode step and a verify window of at most 16 tokens append and
   attend in one kernel per layer (``:507-540,628``); otherwise the writers
   append and the paged kernel attends.

@@ -12,6 +12,12 @@ high), the layout of the JAX package, so packed bytes carry across unchanged.
    tokens): per-row dynamic int8 activations, an exact integer product and
    the f32 epilogue ``acc * xs * scale`` -- on CUDA through the kernel
    ``ops/int8_matmul.int8_mm_scaled``; int4 is unpacked first, in plain torch.
+   In a row-parallel product (:func:`w8a8_matmul` with ``group``, the
+   contraction split over the group's ranks) the row absmax is all-reduced
+   (max) before the activations are quantized, as GSPMD reduces JAX's
+   ``jnp.max(|x|, axis=-1)`` over a split axis (``:170``), and the s32
+   products (the kernel's s32 form) are summed over the group before the
+   epilogue: every rank gets the whole product, equal to one device's.
 2. int4 below that: a 2-D weight on CUDA goes to the kernel
    ``ops/int4_matmul.int4_matmul``, one launch with the scale in its
    epilogue (bit-equal to the kernel's product times ``scale.to(x.dtype)``,
@@ -37,6 +43,7 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 
 from vcoder_tpu_torch.ops import int4_matmul as _int4
 from vcoder_tpu_torch.ops import int8_matmul as _int8
@@ -145,6 +152,20 @@ def set_w8a8(enabled: bool) -> None:
     _W8A8_ENABLED = bool(enabled)
 
 
+def w8a8_epilogue(acc: torch.Tensor, xs: torch.Tensor, scale: torch.Tensor,
+                  dtype) -> torch.Tensor:
+    """``(acc * xs) * scale`` in f32, rounded once to ``dtype``: the scaled
+    kernel's epilogue, in its plain version's order."""
+    return (acc.float() * xs.float() * scale.float()).to(dtype)
+
+
+def quantize_rows(x: torch.Tensor, amax: torch.Tensor):
+    """Per-row dynamic symmetric int8 activations from the row absmax
+    ``amax`` (over the whole contraction): ``(xq int8, xs [M, 1] f32)``."""
+    xs = amax.clamp_min(1e-8) / 127.0
+    return torch.round(x.float() / xs).clamp(-127, 127).to(torch.int8), xs
+
+
 class _W8A8Matmul(torch.autograd.Function):
     """``x @ dequant(q, scale)`` as an s8 x s8 -> s32 product (``:162-203``).
 
@@ -152,38 +173,56 @@ class _W8A8Matmul(torch.autograd.Function):
     quantized per row (dynamic symmetric int8, plain torch). The backward is
     straight-through, ``g @ (q * scale)^T`` in bf16 with f32 accumulation:
     the round() of the activation quantization has no gradient, so without
-    it an adapter trained over an int8 base would get dx == 0."""
+    it an adapter trained over an int8 base would get dx == 0.
+
+    With ``group``, x and q are one rank's input columns and weight rows
+    of a product whose contraction the group splits: the row absmax and
+    the s32 products are reduced over the group, and the backward gives
+    each rank the ``dx`` of its own input columns."""
 
     @staticmethod
-    def forward(ctx, x, q, scale):
-        x32 = x.float()
-        xs = x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
-        xq = torch.round(x32 / xs).clamp(-127, 127).to(torch.int8)
+    def forward(ctx, x, q, scale, group=None):
+        amax = x.float().abs().amax(dim=-1, keepdim=True)
+        if group is not None:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        xq, xs = quantize_rows(x, amax)
         ctx.save_for_backward(q, scale)
         ctx.x_dtype = x.dtype
-        return _int8.int8_mm_scaled(xq, q, xs, scale, out_dtype=x.dtype)
+        if group is None:
+            return _int8.int8_mm_scaled(xq, q, xs, scale, out_dtype=x.dtype)
+        acc = _int8.int8_mm(xq, q)
+        dist.all_reduce(acc, group=group)
+        return w8a8_epilogue(acc, xs, scale, x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         q, scale = ctx.saved_tensors
         gs = (g.float() * scale).to(torch.bfloat16)
         dx = gs.float() @ q.to(torch.bfloat16).float().t()
-        return dx.to(ctx.x_dtype), None, None
+        return dx.to(ctx.x_dtype), None, None, None
+
+
+def uses_w8a8(x: torch.Tensor, w) -> bool:
+    """Whether ``qmatmul(x, w)`` takes the W8A8 product."""
+    return (isinstance(w, QuantizedTensor) and _W8A8_ENABLED and w.q.ndim == 2
+            and x.ndim >= 2 and math.prod(x.shape[:-1]) >= W8A8_MIN_TOKENS)
+
+
+def w8a8_matmul(x: torch.Tensor, w: QuantizedTensor, group=None) -> torch.Tensor:
+    """The W8A8 product ``x @ w`` (int4 unpacked first); with ``group`` a
+    row-parallel one, whose output is whole on every rank (the module
+    docstring)."""
+    q = unpack_int4(w.q) if w.bits == 4 else w.q
+    y = _W8A8Matmul.apply(x.reshape(-1, x.shape[-1]), q, w.scale, group)
+    return y.reshape(*x.shape[:-1], q.shape[-1])
 
 
 def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` for plain, quantized or LoRA-wrapped weights, with JAX's
     dtype promotion for plain ones."""
     if isinstance(w, QuantizedTensor):
-        if (
-            _W8A8_ENABLED
-            and w.q.ndim == 2
-            and x.ndim >= 2
-            and math.prod(x.shape[:-1]) >= W8A8_MIN_TOKENS
-        ):
-            q = unpack_int4(w.q) if w.bits == 4 else w.q
-            y = _W8A8Matmul.apply(x.reshape(-1, x.shape[-1]), q, w.scale)
-            return y.reshape(*x.shape[:-1], q.shape[-1])
+        if uses_w8a8(x, w):
+            return w8a8_matmul(x, w)
         if w.bits == 4:
             if w.q.ndim == 2 and x.device.type == "cuda":
                 # One launch: the scale is the kernel's epilogue.

@@ -117,6 +117,10 @@ def spawn(fn: Callable, world: int, *args, timeout_s: float = 120.0, device="cpu
         results: List[Any] = [None] * world
         done = [False] * world
         while not all(done):
+            # (when written, rank, message): a rank that fails makes its
+            # peers fail too, so of the failures seen the earliest written
+            # is reported; an exit without a result counts as written now.
+            failed = []
             for r, p in enumerate(procs):
                 if done[r]:
                     continue
@@ -125,11 +129,15 @@ def spawn(fn: Callable, world: int, *args, timeout_s: float = 120.0, device="cpu
                     with open(path, "rb") as f:
                         status, value = pickle.load(f)
                     if status != "ok":
-                        raise RuntimeError(f"rank {r} of {world} failed:\n{value}")
-                    results[r], done[r] = value, True
+                        failed.append((os.stat(path).st_mtime_ns, r,
+                                       f"rank {r} of {world} failed:\n{value}"))
+                    else:
+                        results[r], done[r] = value, True
                 elif p.exitcode is not None:
-                    raise RuntimeError(f"rank {r} of {world} exited with code {p.exitcode} "
-                                       "without a result")
+                    failed.append((time.time_ns(), r, f"rank {r} of {world} exited with code "
+                                                      f"{p.exitcode} without a result"))
+            if failed:
+                raise RuntimeError(min(failed)[2])
             if time.monotonic() > deadline:
                 late = [r for r in range(world) if not done[r]]
                 raise TimeoutError(f"ranks {late} of {world} still running after {timeout_s} s")

@@ -12,7 +12,18 @@ when tensor dimension j names axis i, else ``Replicate()``; two axes on one
 dimension shard it data-major, as JAX orders them. :func:`shard_params`
 places a tree leaf by leaf, each rank keeping its slice of the same seeded
 or loaded leaf, so no rank holds more than its shards and one whole leaf.
-Quantized and LoRA-wrapped leaves are refused over a mesh (the next slice).
+
+**Wrapped leaves** (``:77-142``). A ``QuantizedTensor`` (``q``, ``scale``),
+``LoraWeight`` (``base``, itself possibly quantized, ``a``, ``b``) or
+``MultiLoraWeight`` (``base``, ``a``, ``b``, ``idx``) is placed field by
+field: each field takes the rule of the weight it wraps (the wrapper's path,
+as JAX's ``_unwrap_path`` strips the fields by type, so a dict key named
+``scale`` is never stripped) shrunk to the field's own shape. So a
+``[.., 1, out]`` scale drops the axis its 1 cannot hold, a packed int4
+``q`` keeps its axis only where the halved input axis divides, and the
+wrapper comes back with DTensor fields. Packing is row-pair interleaved
+(``ops/quant.py``), so a contiguous block of packed rows is a contiguous
+block of input rows.
 
 **Host offload** (``:163-223``). reference: scripts/zero3_offload.json --
 DeepSpeed ZeRO-3 with ``offload_optimizer {device: cpu, pin_memory: true}``
@@ -40,6 +51,8 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from vcoder_tpu_torch.lora import LoraWeight, MultiLoraWeight
+from vcoder_tpu_torch.ops.quant import QuantizedTensor
 from vcoder_tpu_torch.parallel.mesh import AXES, Mesh, multi_device_error
 
 # ---- sharding rules (copies of the JAX module's ``:25-160``) ----
@@ -124,11 +137,24 @@ def placements_of(spec: Spec, mesh: Mesh) -> tuple:
     return tuple(out)
 
 
-def _check_plain(path: str, leaf) -> None:
-    if not isinstance(leaf, torch.Tensor):
-        raise NotImplementedError(
-            f"{path}: {type(leaf).__name__} leaves over a mesh (quantized and LoRA-wrapped "
-            "weights) belong to the port's next multi-device slice")
+# The tensor fields of each weight wrapper (JAX's ``_WRAPPER_FIELDS``).
+_WRAPPER_FIELDS = {
+    QuantizedTensor: ("q", "scale"),
+    LoraWeight: ("base", "a", "b"),
+    MultiLoraWeight: ("base", "a", "b", "idx"),
+}
+
+
+def _is_wrapper(leaf) -> bool:
+    return type(leaf) in _WRAPPER_FIELDS
+
+
+def _map_fields(leaf, fn):
+    """The wrapper ``leaf`` with ``fn(name, field)`` in place of each tensor
+    field (nested wrappers are fields too; ``bits`` and ``scale`` floats
+    kept)."""
+    return dataclasses.replace(leaf, **{n: fn(n, getattr(leaf, n))
+                                        for n in _WRAPPER_FIELDS[type(leaf)]})
 
 
 def _leaves(params) -> List[Tuple[str, Any]]:
@@ -150,48 +176,92 @@ def _leaves(params) -> List[Tuple[str, Any]]:
     return out
 
 
+def _fields(path: str, leaf, rule_path: str = None):
+    """(field path, rule path, tensor) for every tensor of one leaf: a
+    wrapper's fields under ``path/<field>`` with the wrapper's own path as
+    the rule path."""
+    rule_path = rule_path or path
+    if not _is_wrapper(leaf):
+        yield path, rule_path, leaf
+        return
+    for name in _WRAPPER_FIELDS[type(leaf)]:
+        yield from _fields(f"{path}/{name}", getattr(leaf, name), rule_path)
+
+
+def _field_spec(rule_path: str, shape, mesh: Mesh) -> Spec:
+    """The rule of ``rule_path`` shrunk to ``shape``."""
+    return _shrink_to_fit(spec_for_path(rule_path), tuple(shape), mesh)
+
+
 def param_specs(params, mesh: Mesh) -> Dict[str, Spec]:
-    """{leaf path: spec after ``_shrink_to_fit``} (what JAX's
-    ``param_shardings`` puts in each ``NamedSharding``)."""
-    out = {}
-    for path, leaf in _leaves(params):
-        _check_plain(path, leaf)
-        out[path] = _shrink_to_fit(spec_for_path(path), leaf.shape, mesh)
-    return out
+    """{tensor path: spec after ``_shrink_to_fit``} (what JAX's
+    ``param_shardings`` puts in each ``NamedSharding``), wrapper fields
+    included."""
+    return {fp: _field_spec(rp, t.shape, mesh)
+            for path, leaf in _leaves(params) for fp, rp, t in _fields(path, leaf)}
 
 
 def param_shardings(params, mesh: Mesh) -> Dict[str, tuple]:
-    """{leaf path: DTensor placements} mirroring ``params``."""
+    """{tensor path: DTensor placements} mirroring ``params``."""
     return {p: placements_of(s, mesh) for p, s in param_specs(params, mesh).items()}
 
 
+def local_block(t: torch.Tensor, device_mesh, placements) -> torch.Tensor:
+    """This rank's block of ``t`` (the same whole tensor on every rank)
+    under ``placements`` over ``device_mesh``, cut mesh dimension by mesh
+    dimension as DTensor splits (two axes on one dimension data-major): a
+    view, no communication."""
+    for i, p in enumerate(placements):
+        n = device_mesh.size(i)
+        if p.is_shard() and n > 1:
+            t = t.chunk(n, dim=p.dim)[device_mesh.get_local_rank(i)]
+    return t
+
+
+def whole_layer(w, l: int) -> torch.Tensor:
+    """Layer ``l`` of a stacked leaf, whole: a DTensor's layer gathered from
+    every rank's slice of it (the layer axis is never split), so a sharded
+    leaf is never gathered whole at once."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(w, DTensor):
+        return w[l]
+    shape = w.shape[1:]
+    layer = DTensor.from_local(w.to_local()[l], w.device_mesh,
+                               [Shard(p.dim - 1) if p.is_shard() else p for p in w.placements],
+                               run_check=False, shape=shape,
+                               stride=torch.empty(shape, device="meta").stride())
+    return layer.full_tensor()
+
+
 def _distribute(t: torch.Tensor, mesh: Mesh, placements) -> torch.Tensor:
-    """This rank's slice of ``t`` (the same on every rank) as a DTensor, cut
-    mesh dimension by mesh dimension as DTensor splits (two axes on one
-    dimension data-major): no communication, one copy of the slice (none
+    """This rank's slice of ``t`` (the same on every rank) as a DTensor
+    (:func:`local_block`): no communication, one copy of the slice (none
     when nothing splits ``t``), so the caller can free ``t``."""
     from torch.distributed.tensor import DTensor
 
     t = t.detach()
-    local = t
-    for axis, p in zip(mesh.axis_names, placements):
-        if p.is_shard() and mesh.shape[axis] > 1:
-            local = local.chunk(mesh.shape[axis], dim=p.dim)[mesh.local_rank(axis)]
+    local = local_block(t, mesh.device_mesh, placements)
     if local.numel() < t.numel():
         local = local.clone(memory_format=torch.contiguous_format)
     return DTensor.from_local(local, mesh.device_mesh, placements, run_check=False,
                               shape=t.shape, stride=t.stride())
 
 
-def shard_leaf(path: str, t, mesh: Mesh):
+def shard_leaf(path: str, t, mesh: Mesh, rule_path: str = None):
     """This rank's slice of one leaf by the rules, as a DTensor (a DTensor
-    stays as it is)."""
+    stays as it is); a wrapper comes back with each field sliced by its
+    weight's rule. Anything else raises ``TypeError``."""
     from torch.distributed.tensor import DTensor
 
-    _check_plain(path, t)
+    rule_path = rule_path or path
+    if _is_wrapper(t):
+        return _map_fields(t, lambda name, f: shard_leaf(f"{path}/{name}", f, mesh, rule_path))
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{path}: a {type(t).__name__} leaf cannot be placed on a mesh")
     if isinstance(t, DTensor):
         return t
-    spec = _shrink_to_fit(spec_for_path(path), t.shape, mesh)
+    spec = _field_spec(rule_path, t.shape, mesh)
     return _distribute(t.to(mesh.device), mesh, placements_of(spec, mesh))
 
 
@@ -208,14 +278,17 @@ def leaf_sharder(mesh: Mesh):
 def shard_params(params, mesh: Mesh):
     """Place ``params`` on the mesh by the rules, leaf by leaf, IN the
     caller's dictionaries (each whole leaf is dropped as soon as its slice
-    is kept; a leaf that is a DTensor already stays); returns ``params``.
-    Every rank must pass the same tree."""
+    is kept; a leaf that is a DTensor already stays, and so does a
+    wrapper's DTensor field); returns ``params``. Every rank must pass the
+    same tree."""
     if not mesh.distributed:
         if mesh.size > 1:
             raise multi_device_error(mesh.size)
         return params
-    for path, leaf in _leaves(params):
-        _check_plain(path, leaf)  # refused before any leaf is replaced
+    for path, leaf in _leaves(params):  # refused before any leaf is replaced
+        for fp, _, t in _fields(path, leaf):
+            if not isinstance(t, torch.Tensor):
+                raise TypeError(f"{fp}: a {type(t).__name__} leaf cannot be placed on a mesh")
 
     def walk(tree, prefix):
         keys = tree.keys() if isinstance(tree, dict) else range(len(tree))

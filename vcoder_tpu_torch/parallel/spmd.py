@@ -18,6 +18,15 @@ Every rank runs the same forward on its part of the work:
   weights over ``model`` instead, and so does the whole vision tower
   (``models/clip.py`` says why). The vocabulary products (embedding
   lookups, the LM head) gather their activations over ``model``.
+* **Wrapped weights.** A quantized or LoRA-wrapped weight is computed field
+  by field, each field gathered over ``data x fsdp`` and split over
+  ``model`` as the product needs it: ``q`` as the weight; a scale keeps its
+  local columns in a column-parallel product and is whole in a row-parallel
+  one; a LoRA ``a`` is whole for column-parallel products and split on its
+  input rows for row-parallel ones, its ``b`` the reverse. A row-parallel
+  product sums f32 partials over ``model`` for every form but W8A8, whose
+  s32 products are summed exactly (``ops/quant.py``); a LoRA term is part
+  of the partial sum.
 * **Rows.** A training batch is split over ``data x fsdp`` before the
   forward (``shard_batch``); the engines' caches and page pools hold each
   rank's rows, and the decoder slices a step's rows to them and gathers the
@@ -37,6 +46,9 @@ from typing import Dict, Optional
 import torch
 import torch.distributed as dist
 
+from vcoder_tpu_torch.lora import LoraWeight, MultiLoraWeight, lora_partial
+from vcoder_tpu_torch.ops import quant
+from vcoder_tpu_torch.ops.quant import QuantizedTensor
 from vcoder_tpu_torch.parallel.mesh import Mesh, distributed_mesh
 
 _TLS = threading.local()
@@ -161,24 +173,58 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     return _ReduceFromModel.apply(x, _model_group(m))
 
 
-def partial_product(x: torch.Tensor, w: torch.Tensor, matmul) -> torch.Tensor:
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with f32 accumulation and an f32 result."""
+    part = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    return part.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def partial_product(x: torch.Tensor, w, matmul) -> torch.Tensor:
     """``matmul(x, w)`` as one rank's partial sum of a product whose
     contraction is split over ``model``. Without autograd through it,
     half-precision operands on CUDA give an f32 partial, so the sum over
-    ``model`` is rounded once, as one device's product is; otherwise the
-    product in ``matmul``'s dtype."""
-    if (x.is_cuda and x.dtype in (torch.bfloat16, torch.float16) and x.dtype == w.dtype
-            and not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad))):
-        part = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return part.reshape(*x.shape[:-1], w.shape[-1])
+    ``model`` is rounded once, as one device's product is. A quantized
+    weight below the W8A8 threshold gives an f32 partial always, its scale
+    first rounded to ``x``'s dtype as one device's product multiplies it:
+    the int8 upcast on CUDA as the half-precision product above times the
+    scale, anything else ``qmatmul`` on f32 activations (int4 on CUDA: K5,
+    which rounds them to bf16 as always and writes its f32 sums times the
+    scale). Otherwise the product in ``matmul``'s dtype."""
+    half = x.is_cuda and x.dtype in (torch.bfloat16, torch.float16)
+    if isinstance(w, QuantizedTensor):
+        scale = w.scale.to(x.dtype).float()
+        if half and w.bits == 8 and not _needs_grad(x):
+            return _mm_f32(x, w.q.to(x.dtype)) * scale
+        return quant.qmatmul(x.float(), QuantizedTensor(w.q, scale, w.bits))
+    if half and x.dtype == w.dtype and not _needs_grad(x, w):
+        return _mm_f32(x, w)
     return matmul(x, w)
 
 
-def row_parallel(x: torch.Tensor, w: torch.Tensor, matmul) -> torch.Tensor:
+def row_parallel(x: torch.Tensor, w, matmul) -> torch.Tensor:
     """``matmul(x, w)`` for a product whose contraction is split over
     ``model`` (this rank's input columns and weight rows): the
-    :func:`partial_product` added over ``model``, in ``x``'s dtype."""
-    return reduce_from_model(partial_product(x, w, matmul)).to(x.dtype)
+    :func:`partial_product` added over ``model``, in ``x``'s dtype. A W8A8
+    base reduces its exact s32 products itself (``quant.w8a8_matmul``); a
+    LoRA's term ``scale * (x @ a) @ b`` over this rank's rows of ``a`` (``b``
+    whole) is added to the partial sum before the reduction."""
+    base, lora = (w.base, w) if isinstance(w, LoraWeight) else (w, None)
+    whole, part = None, None
+    if quant.uses_w8a8(x, base):
+        whole = quant.w8a8_matmul(x, base, group=_model_group(mesh()))
+    else:
+        part = partial_product(x, base, matmul)
+    if lora is not None:
+        lo = lora_partial(x, lora, lambda t, b: partial_product(t, b, matmul))
+        part = lo if part is None else part + lo.to(part.dtype)
+    if part is None:
+        return whole
+    out = reduce_from_model(part).to(x.dtype)
+    return out if whole is None else whole + out
 
 
 def gather_from_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -192,24 +238,45 @@ def gather_from_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 # ---- weights ----
 
 
+def _base_tensor(w):
+    """The stored weight under any wrappers (a quantized weight's ``q``)."""
+    while isinstance(w, (LoraWeight, MultiLoraWeight)):
+        w = w.base
+    return w.q if isinstance(w, QuantizedTensor) else w
+
+
 def _model_dim(w) -> Optional[int]:
-    """The tensor dimension a DTensor shards over ``model``, else None."""
+    """The tensor dimension a DTensor (a wrapped weight's stored weight)
+    shards over ``model``, else None."""
     m = mesh()
+    w = _base_tensor(w)
     if m is None or not _is_dtensor(w):
         return None
     p = w.placements[m.axis_names.index("model")]
     return p.dim if p.is_shard() else None
 
 
-def weight(w, model_dim: Optional[int] = -1, index: Optional[int] = None):
+def is_sharded(w) -> bool:
+    """A DTensor, or a wrapper whose stored weight is one."""
+    return _is_dtensor(_base_tensor(w))
+
+
+def weight(w, model_dim: Optional[int] = -1, index: Optional[int] = None,
+           partial_grad: bool = False):
     """The compute tensor of one weight (of ``w[index]``, a layer of a
     layer-stacked weight, when ``index`` is given): gathered over ``data``
     and ``fsdp``; over ``model`` split along ``model_dim`` (-1: as stored;
-    None: replicated). A plain tensor passes through. Without autograd
-    through it, this rank's shard is gathered by plain collectives over
+    None: replicated). A plain tensor passes through; a quantized or LoRA
+    wrapper comes back with each field's compute tensor
+    (:func:`_wrapped_weight`). Without autograd through it,
+    this rank's shard is gathered by plain collectives over
     each mesh dimension's group (where nothing needs gathering, the shard
     is the tensor); under autograd through DTensor, whose backward sends
-    the gradient back as a partial sum over the row axes."""
+    the gradient back as a partial sum over the row axes (and over
+    ``model`` too with ``partial_grad``: a whole weight that each model
+    rank applies to its own share of a product)."""
+    if isinstance(w, (QuantizedTensor, LoraWeight, MultiLoraWeight)):
+        return _wrapped_weight(w, model_dim, index)
     if not _is_dtensor(w):
         return w if index is None else w[index]
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -240,10 +307,38 @@ def weight(w, model_dim: Optional[int] = -1, index: Optional[int] = None):
                                stride=torch.empty(shape, device="meta").stride())
     # The gradient: a partial sum over the row dimensions that split rows.
     grads = [Partial() if n > 1 else Replicate() for n in sizes]
-    grads[mi] = model_p
+    grads[mi] = Partial() if partial_grad and sizes[mi] > 1 else model_p
     if list(w.placements) != target:
         w = w.redistribute(m.device_mesh, target)
     return w.to_local(grad_placements=grads)
+
+
+def _wrapped_weight(w, model_dim, index):
+    """:func:`weight` of each field of a wrapper. In a product split over
+    ``model`` by its input rows (``model_dim`` the slice's row axis) or its
+    output columns (the last axis): ``q`` and a LoRA base as the weight; a
+    scale ``[.., 1, out]`` keeps the columns, whole for rows; a LoRA ``a``
+    keeps the rows, whole for columns, where each rank's gradient of it is
+    a partial sum; ``b`` the reverse. A multi-LoRA stack over a mesh
+    raises JAX's ``ValueError``."""
+    if isinstance(w, MultiLoraWeight):
+        if mesh() is not None:
+            raise ValueError("multi-LoRA serving is single-device only")
+        return w if index is None else w[index]
+    if model_dim == -1:
+        model_dim = _model_dim(w)
+        if model_dim is not None and index is not None:
+            model_dim -= 1
+    ndim = _base_tensor(w).ndim - (index is not None)
+    rows = model_dim is not None and model_dim == ndim - 2
+    cols = model_dim is not None and model_dim == ndim - 1
+    if isinstance(w, QuantizedTensor):
+        return QuantizedTensor(weight(w.q, model_dim, index),
+                               weight(w.scale, model_dim if cols else None, index), w.bits)
+    return LoraWeight(weight(w.base, model_dim, index),
+                      weight(w.a, model_dim if rows else None, index, partial_grad=cols),
+                      weight(w.b, model_dim if cols else None, index, partial_grad=rows),
+                      w.scale)
 
 
 def _relayout(local: torch.Tensor, src, target, m: Mesh) -> torch.Tensor:
@@ -302,7 +397,7 @@ def layer(stack: dict, l: int, *, heads=None, width: int = 0) -> dict:
     tp = tp_blocks(heads, width) if heads else {"attn": False, "mlp": False}
     out = {}
     for k, v in stack.items():
-        if not _is_dtensor(v):
+        if not is_sharded(v):
             raise ValueError(f"layer weight {k} is not sharded over the mesh "
                              "(parallel.shard_params)")
         block, dim = _LLAMA_SPLIT.get(k, (None, None)) if heads else (None, None)

@@ -12,7 +12,8 @@ stage's model variant and adds the adapter branches a plain LLaVA base
 lacks (``models/vcoder.py::initialize_missing_modules``, whose random
 projectors come from a ``torch.Generator`` seeded with ``--seed``: other
 numbers than JAX's), wraps every decoder linear in fresh adapters for
-``--lora-enable``, builds the stage's COST / LLaVA-mix streams
+``--lora-enable`` (under torchrun too: the adapters drawn whole, then
+sharded; ``final/`` merged leaf by leaf), builds the stage's COST / LLaVA-mix streams
 (``train/datasets.py``), trains through ``Trainer`` (resuming from the
 newest ``checkpoint-*``), then writes a step checkpoint,
 ``adapters.safetensors`` and ``final/`` (LoRA merged) with the tokenizer.
@@ -196,10 +197,13 @@ def run_stage(stage: str, args):
             )
         from vcoder_tpu_torch.lora import add_lora
 
+        # Each A is drawn whole from one seeded generator, as on one device;
+        # over a process group each wrapper is then sharded before the next.
         emb = model.params["lm"]["embed_tokens"]
         gen = torch.Generator(device=emb.device)
         gen.manual_seed(args.seed + 17)
-        model.params = add_lora(model.params, gen, rank=args.lora_r, alpha=args.lora_alpha)
+        model.params = add_lora(model.params, gen, rank=args.lora_r, alpha=args.lora_alpha,
+                                place=leaf_sharder(mesh))
         train_stage = "lora" if stage == "full" else "it_lora"
 
     entries, use_seg, use_depth = build_entries(stage, args)
