@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``vcoder_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py                  # every phase (1-4, 6, 7, 8, 9, 12, 5, 11a, 10,
-                                           # 11, 13, 14, 15)
+                                           # 11, 13, 14, 16, 15)
     python3 chip_smoke.py --profile        # also torch.profiler: two B=1 requests,
                                            # the paged engine's decode step at B=8,
                                            # in bf16, with int4/int8 weights and with
@@ -73,7 +73,14 @@ Phases, in order; any failure exits non-zero:
    (phase 8's first batch, B=4, T=2048). Kernels and yardsticks
    are timed by CUDA-graph replay (SDPA's masked backward eagerly, its
    causal backward by its kernels' device time under the profiler), the plain
-   versions eagerly.
+   versions eagerly. Each serving kernel also runs at the 13B decoder's
+   shapes (40 heads of 128, hidden 5120, intermediate 13824), gated as its
+   table's cases and noted under ``cases_13b`` on its entry of the kernels
+   line: K1's prefill at H=KH=40; K8, K3 (verify w=4, chunk w=128) and K4
+   (decode at B=4, 8 and 16, verify w=4) at KH=40 over 40-layer pools
+   (``PAGED_CASES_13B``); K7's bf16 and int8 decode (``FUSED_CASES_13B``);
+   K5 at B=1, 8 and 16 over the four 13B products (``INT4_SHAPES_13B``);
+   K10 in both forms at M=1232 and 1792 over three (``INT8_CASES_13B``).
 4. Main path at full width: VCoder-DS-7B with seeded random bf16 weights
    (built once, shared with phase 6) serves 3 requests (RGB + seg + depth,
    non-square, made from a numpy seed) through ``process_images``,
@@ -217,6 +224,26 @@ Phases, in order; any failure exits non-zero:
    peak device memory (offloaded and resident), host RSS and pinned bytes,
    and each offloaded step's H2D, D2H and update times on the copy
    streams' events with their overlap.
+16. VCoder-DS-13B on the card (``phase_13b``), after phase 14 has
+   released every 7B tree: ``VCoderConfig.standard("vcoder_ds_llava",
+   "13b")`` at full width and depth (40 decoder layers, 23 CLIP blocks),
+   seeded random bf16 weights, EOS off. 16a: phase 4's 3 requests through
+   ``generate`` (40 K1 and 23 K2 launches a prefill; TTFT and decode
+   logged). 16b: engine A13 (bf16 pools, ``max_batch`` 8) on engine A's
+   traffic through ``EngineWorker.from_engine``, gated on 40 K8 launches a
+   decode step and 40/23 flash/ViT launches an admission, its tokens beside
+   ``generate``'s. 16c: ``save_pretrained`` into a temporary
+   ``vcoder_ds_llava-v1.5-13b`` directory (the run's checkpoint writes,
+   phase 10's included, reckoned from file sizes and gated on
+   ``DISK_BUDGET_GIB``), ``quantize_params(bits=8)`` in place (its peak
+   over the bf16 tree gated on ``QUANT_PEAK_GIB``), engine E13 (int8
+   weights and pools, ``max_batch`` 4, 4 requests; 418 scaled K10 products
+   an admission, 40 K4 launches a step), and E13's B=1 prefill logits with
+   W8A8 on against off. 16d: the int8 tree freed,
+   ``load_pretrained_model(dir, load_4bit=True)`` (seconds and peak
+   logged), engine D13 (int4 weights, int8 pools, ``max_batch`` 16, 16
+   requests; 281 K5 a step and 1 an admission, 418 K10, 40 K4); the
+   directory is deleted. One ``phase16: {...}`` line holds the readings.
 15. The mesh, last (``phase_sharded``; alone ``scripts/multichip_phase.py``):
    in this process the one-device run on fresh 7B weights (the tower on
    its unfused blocks and the B=1 prefills on the attention route the
@@ -247,7 +274,8 @@ Phases, in order; any failure exits non-zero:
    rank's peak memory.
 
 The card machine's disk takes ~45 GiB of writes a run (deleted files
-count), and phase 10's directory takes 13.5 of them: phases 13 and 14 write
+count); phase 10's directory takes 13.5 of them and phase 16's 13B
+directory ~25: phases 13 and 14 write
 their weight files (step checkpoint, adapters, ``final/model.safetensors``)
 through named pipes into reader threads that check each header and byte
 count (``piped_weights``); their small files are written as files.
@@ -304,6 +332,14 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def note_case(report: list, kernel: str, case: str, row: dict) -> None:
+    """A further case of ``kernel`` at another configuration's shapes (the
+    13B decoder's): its numbers go on the kernel's entry of the
+    ``{"kernels": ...}`` line, under ``cases_13b``, beside the main case."""
+    entry = next(e for e in report if e["name"] == kernel)
+    entry.setdefault("cases_13b", []).append(dict(case=case, **row))
 
 
 def phase_device() -> str:
@@ -432,6 +468,11 @@ def check_flash(case: dict, report: list) -> None:
     b_ms, b_by = bound(flops, nbytes)
     log(f"  {case['name']}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms"
         f"{flash_note}  bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    if case.get("note"):
+        note_case(report, case["note"], case["name"], dict(
+            max_abs_err=err, lse_err=lse_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms if flash_ms is None else flash_ms,
+            library_masked_ms=lib_ms))
     if not case.get("report"):
         return
     report.append(dict(name=case["report"], route="cuda",
@@ -803,7 +844,7 @@ def phase_k6_faults(layout, ds) -> bool:
             del case, q, k, v, out, lse, ref, got
             torch.cuda.empty_cache()
 
-        cfg, params, model, _ = build_7b()
+        cfg, params, model, _ = build_model()
         del model
         stage = "vcoder_ds"
         for t in trainable_leaves(params, stage).values():
@@ -1169,6 +1210,10 @@ def check_paged(case: dict, report: list) -> None:
     log(f"  {case['name']}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
         f"sdpa over pre-gathered dense K/V (gather excluded) {lib_ms:.4f} ms  "
         f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    if case.get("note"):
+        note_case(report, case["note"], case["name"], dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, body=_body(route)))
     if case["report"]:
         report.append(dict(name=case["report"], route="cuda",
                            source="vcoder_tpu_torch/csrc/paged_attn.cu",
@@ -1237,6 +1282,31 @@ PAGED_CASES = [
 ]
 
 
+# The 13B engines' shapes (40 layers, H = KH = 40; layer 21 of the stacked
+# pool), each (keyword arguments of _paged_case, the kernel's entry it is
+# noted on): engine A13's decode on one layer's pool (K8), a verify window
+# and a chunk window (K3, SPLIT and TILE bodies), engines E13's and D13's
+# int8 decode at B=4 and 16 beside B=8, and an int8 verify window (K4).
+DECODE_LENGTHS_16 = np.linspace(1201, 1233, 16).astype(np.int32)
+PAGED_CASES_13B = [
+    (dict(name="paged 13B unstacked pool (K8) B=8 w=1 H=KH=40 page 64 len 1201-1233", B=8,
+          window=1, H=40, KH=40, lengths=DECODE_LENGTHS, L=1, layer=0, stacked=False,
+          seed=31), "paged_attn_k8"),
+    (dict(name="paged 13B bf16 verify B=8 w=4 L=40@21", B=8, window=4, H=40, KH=40,
+          lengths=DECODE_LENGTHS + 4, L=40, layer=21, seed=32), "paged_attn_bf16"),
+    (dict(name="paged 13B bf16 chunk 4 rows w=128 L=40@21", B=4, window=128, H=40, KH=40,
+          lengths=[1280, 1216, 1152, 1280], L=40, layer=21, seed=33), "paged_attn_bf16"),
+    (dict(name="paged 13B int8 decode B=4 w=1 L=40@21", B=4, window=1, H=40, KH=40,
+          lengths=DECODE_LENGTHS[::2], L=40, layer=21, quant=True, seed=34), "paged_attn_q8"),
+    (dict(name="paged 13B int8 decode B=8 w=1 L=40@21", B=8, window=1, H=40, KH=40,
+          lengths=DECODE_LENGTHS, L=40, layer=21, quant=True, seed=35), "paged_attn_q8"),
+    (dict(name="paged 13B int8 decode B=16 w=1 L=40@21", B=16, window=1, H=40, KH=40,
+          lengths=DECODE_LENGTHS_16, L=40, layer=21, quant=True, seed=36), "paged_attn_q8"),
+    (dict(name="paged 13B int8 verify B=8 w=4 L=40@21", B=8, window=4, H=40, KH=40,
+          lengths=DECODE_LENGTHS + 4, L=40, layer=21, quant=True, seed=37), "paged_attn_q8"),
+]
+
+
 def phase_paged_kernels(report: list) -> None:
     """The paged kernel against its plain version at the engine's shapes."""
     import torch
@@ -1254,7 +1324,7 @@ def phase_paged_kernels(report: list) -> None:
 
 
 def _fused_case(name, *, B, window, H, KH, lengths, active=None, page=64, quant=False,
-                seed=0):
+                seed=0, L=32, layer=17):
     """Inputs for one fused append + attend comparison: the pools, table and
     query of :func:`_paged_case` (layer 17 of 32, pages of ``page``; ``lengths``
     include the window for active rows only), plus the window's new K/V
@@ -1262,8 +1332,8 @@ def _fused_case(name, *, B, window, H, KH, lengths, active=None, page=64, quant=
     window * active`` and the active mask."""
     import torch
 
-    case = _paged_case(name, B=B, window=window, H=H, KH=KH, lengths=lengths, page=page,
-                       quant=quant, seed=seed)
+    case = _paged_case(name, B=B, window=window, H=H, KH=KH, lengths=lengths, L=L, layer=layer,
+                       page=page, quant=quant, seed=seed)
     gen = torch.Generator(device="cuda").manual_seed(seed + 50)
     act = np.ones(B, bool) if active is None else np.asarray(active)
     shape = (B, window, KH, 128)
@@ -1425,6 +1495,10 @@ def check_fused(case: dict, report: list) -> None:
     log(f"  {case['name']}: kernel {ms:.4f} ms  unfused route (append writers + paged kernel) "
         f"{unfused_ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa over pre-gathered dense K/V "
         f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB)")
+    if case.get("note"):
+        note_case(report, "paged_attn_fused", case["name"], dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, unfused_ms=unfused_ms, body=_body(route)))
     if case["report"]:
         report.append(dict(name="paged_attn_fused", route="cuda",
                            source="vcoder_tpu_torch/csrc/paged_attn.cu",
@@ -1464,6 +1538,15 @@ FUSED_CASES = [
     dict(name="fused int8 GQA 32q/8kv w=8 (C=32), an inactive row, a window across a page",
          B=4, window=8, H=32, KH=8, lengths=[70, 134, 1205, 37],
          active=[True, True, True, False], quant=True, seed=27),
+]
+
+
+# K7 at the 13B decode step (noted on K7's entry): bf16 and int8 pools.
+FUSED_CASES_13B = [
+    dict(name="fused 13B bf16 decode B=8 w=1 L=40@21 H=KH=40 page 64 len 1201-1233", B=8,
+         window=1, H=40, KH=40, lengths=DECODE_LENGTHS, L=40, layer=21, seed=38),
+    dict(name="fused 13B int8 decode B=8 w=1 L=40@21 H=KH=40", B=8, window=1, H=40, KH=40,
+         lengths=DECODE_LENGTHS, L=40, layer=21, quant=True, seed=39),
 ]
 
 
@@ -1617,6 +1700,11 @@ INT4_MAIN = (1, 4096, 11008)
 INT4_LOCAL = (("local down", 5504, 4096), ("local gate/up", 4096, 5504))
 INT4_RAGGED = ((3, 1040, 1000, 1064), (13, 1040, 1000, 1043), (40, 1040, 1000, 1056),
                (13, 1040, 1200, 1048), (5, 1000, 1200, 1000))
+# The 13B decoder's products (hidden 5120, intermediate 13824), timed at B=1
+# (the B=1 decode), 8 and 16 (engine D13's capacity batch); noted on K5's
+# entry.
+INT4_SHAPES_13B = (("13B q/k/v/o", 5120, 5120), ("13B gate/up", 5120, 13824),
+                   ("13B down", 13824, 5120), ("13B lm_head", 5120, 32000))
 
 
 def int4_operands(B: int, K: int, N: int, sx: int = 0):
@@ -1706,7 +1794,7 @@ def check_int4(label: str, B: int, K: int, N: int, sx: int = 0, timed: bool = Tr
         f"replay over weight copies >120 MB, L2 cold)")
     torch.cuda.empty_cache()
     row.update(ms=ms, ms_scaled=ms_scaled, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-               share=b_ms / ms)
+               bound_by=b_by, share=b_ms / ms, cluster=cluster)
     if report is not None:
         report.append(dict(name="int4_matmul", route="cuda",
                            source="vcoder_tpu_torch/csrc/int4_matmul.cu",
@@ -1747,6 +1835,11 @@ INT8_CASES = (
     ("ragged", 333, 1040, 1200),
 )
 INT8_MAIN = (1280, 4096, 11008)
+# The 13B decoder's W8A8 products at one DS prefill's rows (1232) and at
+# 1792 rows, each noted on K10's entries in both forms.
+INT8_CASES_13B = tuple((f"13B {label}", M, K, N) for M in (1232, 1792)
+                       for label, K, N in (("q/k/v/o", 5120, 5120), ("gate/up", 5120, 13824),
+                                           ("down", 13824, 5120)))
 
 
 def int8_operands(M: int, K: int, N: int):
@@ -1794,11 +1887,12 @@ def int8_agreement(a, b, sa, sb) -> dict:
                 ok=err_s32 == 0 and rel <= 2.0 ** -8 and bool(torch.isfinite(y.float()).all()))
 
 
-def check_int8(label: str, M: int, K: int, N: int, report) -> None:
+def check_int8(label: str, M: int, K: int, N: int, report, note: bool = False) -> None:
     """K10 in both forms against their plain versions at one case, timed
     beside ``torch._int_mm`` on the N-major weight (the library column) and
     on a K-major copy of it made outside the timed call (what cuBLASLt does
-    when the layout suits it)."""
+    when the layout suits it). Into ``report`` (when given) as each form's
+    entry, or with ``note`` noted on each form's entry there."""
     import torch
 
     from vcoder_tpu_torch.ops import int8_matmul as i8
@@ -1835,7 +1929,12 @@ def check_int8(label: str, M: int, K: int, N: int, report) -> None:
             f"{plain_ms:.4f} ms  torch._int_mm{epi} {lib_ms:.4f} ms  torch._int_mm on a "
             f"K-major copy{epi} {kmaj_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
             f"{ops / 1e9:.1f} GOP at 1979 TOP/s, {nbytes / 1e6:.1f} MB)")
-        if report is not None:
+        if report is not None and note:
+            note_case(report, form, name, dict(
+                max_abs_err=float(agree["err_s32"] if form == "int8_mm" else agree["err_scaled"]),
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                library_kmajor_ms=kmaj_ms))
+        elif report is not None:
             report.append(dict(
                 name=form, route="cuda", source="vcoder_tpu_torch/csrc/int8_mm.cu",
                 replaces=("scripts/bench_int8_matmul.py:76" if form == "int8_mm"
@@ -1867,6 +1966,46 @@ def phase_quant_kernels(report: list) -> None:
     # The yardsticks ran cuBLAS on one side stream per CUDA graph, each with
     # a workspace that stays allocated: free them, so the later phases'
     # memory readings do not carry them.
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+
+
+def phase_kernels_13b(report: list) -> None:
+    """Phase 3's serving kernels at the 13B decoder's shapes (40 heads of
+    128, hidden 5120, intermediate 13824), each gated as its table's cases
+    and noted on its kernel's entry of ``report`` (:func:`note_case`): K1's
+    prefill at H=KH=40, the paged cases of ``PAGED_CASES_13B`` and
+    ``FUSED_CASES_13B``, K5 at B=1, 8 and 16 over ``INT4_SHAPES_13B`` and
+    K10 in both forms over ``INT8_CASES_13B``. The comparison launches do
+    not count."""
+    import torch
+
+    case = _flash_case("flash_fwd 13B causal T=1280 (1201 valid) S=1312 H=KH=40 D=128",
+                       1, 1280, 1312, 40, 40, 128, causal=True, n_valid=1201, seed=13)
+    case["note"] = "flash_fwd"
+    check_flash(case, report)
+    for kw, note in PAGED_CASES_13B:
+        case = _paged_case(**kw)
+        case["note"] = note
+        check_paged(case, report)
+        del case
+        torch.cuda.empty_cache()
+    for kw in FUSED_CASES_13B:
+        case = _fused_case(**kw)
+        case["report"], case["note"] = False, True
+        check_fused(case, report)
+        del case
+        torch.cuda.empty_cache()
+    for B in (1, 8, 16):
+        for label, K, N in INT4_SHAPES_13B:
+            row = check_int4(label, B, K, N)
+            note_case(report, "int4_matmul", f"{label} B={B} K={K} N={N}",
+                      {k: row[k] for k in ("max_abs_err", "ms", "ms_scaled", "plain_ms",
+                                           "bound_ms", "bound_by", "library_ms", "cluster")})
+    for label, M, K, N in INT8_CASES_13B:
+        check_int8(label, M, K, N, report, note=True)
+    _reset_counters()
     clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
     if clear is not None:
         clear()
@@ -1977,10 +2116,11 @@ def _serve(model, tok, pictures, max_new_tokens):
     return ids, res
 
 
-def build_7b(device="cuda", quiet: bool = False, place=None):
-    """VCoder-DS-7B with seeded random bf16 weights and EOS off, built once
-    and shared by phases 4 and 6 (phase 15 builds them again on each of its
-    ranks' cards, ``place`` sharding each leaf as it is drawn). Returns
+def build_model(size: str = "7b", device="cuda", quiet: bool = False, place=None):
+    """VCoder-DS of ``size`` (``VCoderConfig.standard``'s "7b" or "13b")
+    with seeded random bf16 weights and EOS off: 7B built once and shared
+    by phases 4 to 12 (phase 15 builds it again on each of its ranks' cards,
+    ``place`` sharding each leaf as it is drawn), 13B by phase 16. Returns
     (cfg, params, model, tokenizer)."""
     import torch
 
@@ -1989,7 +2129,7 @@ def build_7b(device="cuda", quiet: bool = False, place=None):
     from vcoder_tpu_torch.models import vcoder as model_mod
     from vcoder_tpu_torch.simple_tokenizer import SimpleTokenizer
 
-    cfg = VCoderConfig.standard("vcoder_ds_llava", "7b")
+    cfg = VCoderConfig.standard("vcoder_ds_llava", size)
     # EOS off (an id argmax never emits): every request decodes all tokens.
     cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, eos_token_id=-1))
     t0 = time.perf_counter()
@@ -1998,15 +2138,17 @@ def build_7b(device="cuda", quiet: bool = False, place=None):
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _flat(params).values())
     if not quiet:
-        log(f"VCoder-DS-7B random bf16 weights, {n_params / 1e9:.3f} B params, "
+        log(f"VCoder-DS-{size.upper()} random bf16 weights, {n_params / 1e9:.3f} B params, "
             f"init {time.perf_counter() - t0:.1f} s, "
             f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     tok = SimpleTokenizer.build_from_texts([PROMPT])
     return cfg, params, VCoderForCausalLM(cfg, params), tok
 
 
-def phase_main_path(cfg, params, model, tok) -> dict:
-    """Phase 4: the B=1 path of ``generate``. Returns the launch counts."""
+def phase_main_path(cfg, params, model, tok, profile: bool = None) -> dict:
+    """Phase 4 (and 16a, at 13B): the B=1 path of ``generate``, gated on one
+    flash launch per decoder layer and 23 ViT blocks per prefill. Returns the
+    launch counts, TTFT and decode p50 and the requests."""
     import torch
 
     from vcoder_tpu_torch.ops import flash_attention as fa
@@ -2044,11 +2186,11 @@ def phase_main_path(cfg, params, model, tok) -> dict:
             f"first tokens {seqs[0, :8].tolist()}")
     n_flash, n_vit = fa.launches, va.launches
     ttft_p50 = float(np.median([r["ttft_ms"] for r in reqs]))
-    log(f"  TTFT p50 {ttft_p50:.1f} ms, decode p50 "
-        f"{np.median([r['decode_tok_s'] for r in reqs]):.1f} tok/s (B=1, host clock)")
+    decode_p50 = float(np.median([r["decode_tok_s"] for r in reqs]))
+    log(f"  TTFT p50 {ttft_p50:.1f} ms, decode p50 {decode_p50:.1f} tok/s (B=1, host clock)")
     log(f"  launches over {prefills} prefills: flash_fwd {n_flash} ({n_flash / prefills:g} per "
         f"prefill), vit_block {n_vit} ({n_vit / prefills:g} per tower pass)")
-    if n_flash != 32 * prefills or n_vit != 23 * prefills:
+    if n_flash != cfg.text.num_layers * prefills or n_vit != 23 * prefills:
         raise SystemExit("main path did not go through the kernels as expected")
 
     # Finite logits of the right shape, and the kernel route beside the plain
@@ -2060,9 +2202,10 @@ def phase_main_path(cfg, params, model, tok) -> dict:
     rel = ((lk - lp).norm() / lp.norm()).item()
     log(f"  prefill T={plan.seq_len} ({int(plan.seq_lens[0])} valid): kernel vs plain route "
         f"logits rel L2 {rel:.3e}, argmax {int(lk.argmax())} vs {int(lp.argmax())}")
-    if "--profile" in sys.argv:
+    if "--profile" in sys.argv if profile is None else profile:
         profile_requests(model, tok, _images(np.random.RandomState(8), 480, 640))
-    return {"flash_fwd": n_flash, "vit_block": n_vit, "ttft_p50_ms": ttft_p50, "requests": reqs}
+    return {"flash_fwd": n_flash, "vit_block": n_vit, "ttft_p50_ms": ttft_p50,
+            "decode_tok_s_p50": decode_p50, "requests": reqs}
 
 
 ENGINE_SIZES = [(480, 640), (720, 540), (375, 500), (600, 800), (512, 384), (333, 444),
@@ -2116,7 +2259,8 @@ def _drive(worker, preps):
     return results, time.perf_counter() - t0
 
 
-def _run_engine(label, cfg, params, turns, *, max_new, profile_first=False, **kw):
+def _run_engine(label, cfg, params, turns, *, max_new, profile_first=False, max_batch=8,
+                model_name="vcoder_ds_llava-7b", **kw):
     """Build a paged engine and serve each turn -- a list of requests, or a
     function of the previous turn's results -- through
     EngineWorker.from_engine, every counter set to 0 just before the turn and
@@ -2135,13 +2279,13 @@ def _run_engine(label, cfg, params, turns, *, max_new, profile_first=False, **kw
     from vcoder_tpu_torch.serve.engine_server import EngineWorker
     from vcoder_tpu_torch.serve.paged_engine import PagedServingEngine
 
-    eng = PagedServingEngine(cfg, params, max_batch=8, max_len=2048, page_size=64, eos_id=-1,
-                             device="cuda", **kw)
+    eng = PagedServingEngine(cfg, params, max_batch=max_batch, max_len=2048, page_size=64,
+                             eos_id=-1, device="cuda", **kw)
     if kw.get("chunked_prefill"):
         eng.warmup_chunks()
     pool_gib = sum(t.numel() * t.element_size() for t in
                    (eng.k_pages, eng.v_pages, eng.k_scale, eng.v_scale) if t is not None) / 2**30
-    worker = EngineWorker.from_engine(eng, model_name="vcoder_ds_llava-7b", eos_id=-1)
+    worker = EngineWorker.from_engine(eng, model_name=model_name, eos_id=-1)
     results, walls, counts, decode = [], [], [], []
     paged_ms = None
     try:
@@ -2185,7 +2329,7 @@ def _run_engine(label, cfg, params, turns, *, max_new, profile_first=False, **kw
         worker.shutdown()
         eng.close()
         torch.cuda.empty_cache()
-    ttfts = []
+    ttfts, rates = [], []
     for t, (res, wall, c, (dec_s, step_p50)) in enumerate(zip(results, walls, counts, decode)):
         bad = [r for r in res if r["err"] is not None or len(r["tokens"]) != max_new]
         if bad:
@@ -2193,6 +2337,7 @@ def _run_engine(label, cfg, params, turns, *, max_new, profile_first=False, **kw
         ttft = np.median([r["ttft_s"] for r in res]) * 1e3
         ttfts.append(ttft)
         n_tok = sum(len(r["tokens"]) - 1 for r in res)
+        rates.append(n_tok / dec_s)
         log(f"  engine {label} turn {t + 1}: {len(res)} requests x {max_new} tokens in "
             f"{wall:.2f} s; TTFT p50 {ttft:.1f} ms; aggregate decode {n_tok / dec_s:.1f} tok/s "
             f"({n_tok} tokens after the first over {dec_s:.2f} s of decode steps); per-step "
@@ -2203,7 +2348,8 @@ def _run_engine(label, cfg, params, turns, *, max_new, profile_first=False, **kw
     log(f"  engine {label}: pools {pool_gib:.2f} GiB, prefix {json.dumps(stats.get('prefix_cache'))}, "
         f"preemptions {stats.get('preemptions')}, tokens sha1 {digest}")
     return results, dict(counts=counts, prefix=stats.get("prefix_cache"), ttft_p50_ms=ttfts,
-                         step_p50_ms=[d[1] for d in decode], digest=digest, profile=paged_ms)
+                         step_p50_ms=[d[1] for d in decode], decode_tok_s=rates, digest=digest,
+                         profile=paged_ms, pool_gib=pool_gib)
 
 
 # Engine C: speculative verify windows of 4, chunked prefill of 128, prefix cache.
@@ -3380,13 +3526,18 @@ def _serving(httpd):
         t.join(timeout=60)
 
 
+def _dir_gib(d: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) / 2**30
+
+
 def phase_surfaces(cfg, held: list, tok, reqs, then=None) -> dict:
     """Phase 10: generate's other modes on the phase-4 weights (``held`` =
     [params, model], dropped once the checkpoint is written), then the
     serving surfaces from one checkpoint directory: the Chat-based HTTP
     worker, the engine worker at ``main()``'s defaults under 4 concurrent
     requests, and the CLI as a subprocess. ``then(dir)`` runs last, in the
-    checkpoint directory (phases 11, 13 and 14). Returns the launch totals."""
+    checkpoint directory (phases 11, 13 and 14). Returns the launch totals
+    and the directory's GiB (``written_gib``)."""
     import base64
     import gc
     import shutil
@@ -3453,7 +3604,7 @@ def phase_surfaces(cfg, held: list, tok, reqs, then=None) -> dict:
         save_pretrained(d, params, cfg)
         tok.save_pretrained(d)
         laps["save"] = round(time.perf_counter() - t0, 1)
-        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) / 2**30
+        size = _dir_gib(d)
         log(f"  save_pretrained: {size:.2f} GiB in {laps['save']} s ({free:.0f} GiB free before)")
         held.clear()
         del params, model, px4
@@ -3572,7 +3723,7 @@ def phase_surfaces(cfg, held: list, tok, reqs, then=None) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"  phase 10 seconds: {json.dumps(laps)}; device memory peak in the phase "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return totals
+    return dict(totals, written_gib=size)
 
 
 # Phase 11: a COST depth eval (scripts/v1_5/eval/cost_depth.sh's flow) of the
@@ -4971,7 +5122,7 @@ def _sharded_rank(rank, world, form, traffic, device):
 
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    cfg, params, _, _ = build_7b(device=dev, quiet=rank != 0, place=leaf_sharder(mesh))
+    cfg, params, _, _ = build_model(device=dev, quiet=rank != 0, place=leaf_sharder(mesh))
     build_peak, held = peak_gib(), held_gib()
     leaves = list(_flat(params).values())
     leaf = max(t.numel() * t.element_size() for t in leaves) / 2**30
@@ -5167,7 +5318,7 @@ def phase_sharded(device: str = "cuda") -> dict:
     t0 = time.perf_counter()
     from vcoder_tpu_torch.models import clip
 
-    cfg, params, _, _ = build_7b(device=device)
+    cfg, params, _, _ = build_model(device=device)
     row_split = check_row_split(params, device) if cuda else None
     traffic = sharded_traffic(cfg, device)
     # The one-device run takes the routes a mesh takes, so the gaps are the
@@ -5281,6 +5432,207 @@ def phase_sharded(device: str = "cuda") -> dict:
     return total
 
 
+# Phase 16: VCoder-DS-13B on one card. D13 serves the capacity batch of 16:
+# engine A's 8 pictures (the same seed), then 8 more sizes.
+DIR_13B = "vcoder_ds_llava-v1.5-13b"
+CAPACITY_SIZES = ENGINE_SIZES + [(448, 336), (560, 720), (300, 420), (700, 500), (384, 512),
+                                 (420, 630), (800, 600), (360, 480)]
+# The card machine takes ~45 GiB of writes a call, deleted files included;
+# phase 10's and phase 16's checkpoint directories are nearly all of them.
+DISK_BUDGET_GIB = 44.0
+# The in-place int8 quantization's peak over the bf16 tree it starts from:
+# the largest int8 leaf (gate/up, 2.6 GiB) made before its bf16 leaf frees,
+# and one layer's f32 transients.
+QUANT_PEAK_GIB = 4.0
+W8A8_PRODUCTS_13B = 7 * 40 + 6 * 23  # decoder and tower products of a W8A8 prefill
+
+
+def _quant_engine_gate(label: str, c: dict, n: int, L: int, int4: bool) -> None:
+    """A quantized engine's counters over ``n`` admissions: ``L`` flash
+    launches and 418 scaled K10 products per admission, ``L`` K4 launches per
+    decode step (int8 pools), no ViT block (the quantized tower is unfused),
+    and with int4 weights 7 L + 1 K5 launches per decode step and 1 per
+    admission (the LM head on the last prompt token)."""
+    d = c["decode_dispatches"]
+    want = dict(flash=L * n, vit=0, int8_scaled=W8A8_PRODUCTS_13B * n, int8=0, q8=L * d,
+                int4=(7 * L + 1) * d + n if int4 else 0)
+    got = {k: c[k] for k in want}
+    if got != want or c["bf16"] or c["k8"] or c["fused"]:
+        raise SystemExit(f"engine {label}: launches {c} != {want} (bf16/k8/fused must be 0)")
+
+
+def phase_13b(disk_gib: float) -> dict:
+    """Phase 16: VCoder-DS-13B at full width and depth (40 decoder layers,
+    23 CLIP blocks), seeded random bf16 weights, EOS off, after every 7B
+    tree is released. 16a: phase 4's 3 requests through ``generate`` (40
+    K1 and 23 K2 launches a prefill). 16b: engine A13, bf16 pools,
+    ``max_batch`` 8, engine A's 8 requests (40 K8 a decode step, 40/23 per
+    admission), its tokens beside ``generate``'s on the same requests. 16c:
+    the tree saved as a ``vcoder_ds_llava-v1.5-13b`` directory (the run's
+    writes reckoned with ``disk_gib``, phase 10's, and gated), then quantized
+    to int8 in place on the card; engine E13, int8 weights and pools,
+    ``max_batch`` 4, 4 requests (418 scaled K10 an admission, 40 K4 a step);
+    the B=1 prefill logits with W8A8 on and off. 16d: the int8 tree freed,
+    the directory loaded by ``load_pretrained_model(load_4bit=True)``;
+    engine D13, int4 weights, int8 pools, ``max_batch`` 16, 16 requests (281
+    K5 a step + 1 an admission, 418 K10, 40 K4). Returns the launch totals
+    and the readings."""
+    import gc
+
+    import torch
+
+    from vcoder_tpu_torch.builder import load_pretrained_model
+    from vcoder_tpu_torch.checkpoint import save_pretrained
+    from vcoder_tpu_torch.mm_tokens import tokenizer_depth_seg_token
+    from vcoder_tpu_torch.ops import quant as oq
+    from vcoder_tpu_torch.quant import quantize_params
+
+    t_phase = time.perf_counter()
+    laps, out = {}, {}
+    gib = lambda x: round(x / 2**30, 2)  # noqa: E731
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host = getattr(torch._C, "_host_emptyCache", None)
+    if empty_host is not None:  # pinned blocks the offloaded stage left cached
+        empty_host()
+    log(f"  before the phase: {gib(torch.cuda.memory_allocated())} GiB allocated (no 7B tree "
+        f"held), host RSS {_rss_gib():.1f} GiB")
+    cfg, params, model, tok = build_model("13b")
+    L = cfg.text.num_layers
+    out["bf16_gib"] = gib(torch.cuda.memory_allocated())
+    laps["build"] = round(time.perf_counter() - t_phase, 1)
+
+    log("  16a: B=1 generate, phase 4's requests")
+    main = phase_main_path(cfg, params, model, tok, profile=False)
+    out.update(ttft_p50_ms=round(main["ttft_p50_ms"], 1),
+               decode_tok_s_p50=round(main["decode_tok_s_p50"], 1))
+    totals = dict(flash=main["flash_fwd"], vit=main["vit_block"])
+    laps["16a"] = round(time.perf_counter() - t_phase - sum(laps.values()), 1)
+
+    ids = tokenizer_depth_seg_token(PROMPT, tok)
+    rng = np.random.RandomState(11)
+    reqs = [_prepared(ids, _images(rng, h, w), 32) for h, w in CAPACITY_SIZES]
+    preps = [p for p, _ in reqs]
+    (res_a,), st = _run_engine("A13 (bf16 pools)", cfg, params, [preps[:8]], max_new=32,
+                               model_name=DIR_13B)
+    c = st["counts"][0]
+    if (c["k8"] != L * c["decode_dispatches"] or c["bf16"] or c["q8"] or c["fused"]
+            or c["flash"] != L * 8 or c["vit"] != 23 * 8):
+        raise SystemExit(f"engine A13: launches {c}, want {L} K8 a decode step and {L}/23 "
+                         f"flash/ViT an admission")
+    first = later = 0
+    for (_, px), r in zip(reqs[:8], res_a):
+        g = model.generate([ids], *px, max_new_tokens=32).sequences[0].tolist()
+        first += int(g[0] == r["tokens"][0])
+        later += sum(int(x == y) for x, y in zip(g[1:], r["tokens"][1:]))
+    torch.cuda.synchronize()
+    log(f"  A13 vs dense generate (prompt padded to 1280, not the engine's 1536 bucket): first "
+        f"tokens {first}/8 agree, decode tokens {later}/{8 * 31}")
+    out["A13"] = dict(ttft_p50_ms=round(st["ttft_p50_ms"][0], 1),
+                      step_p50_ms=round(st["step_p50_ms"][0], 2),
+                      decode_tok_s=round(st["decode_tok_s"][0], 1), pools_gib=round(st["pool_gib"], 2),
+                      first_agree=first, later_agree=later)
+    for k in ("flash", "vit", "k8"):
+        totals[k] = totals.get(k, 0) + c[k]
+    laps["16b"] = round(time.perf_counter() - t_phase - sum(laps.values()), 1)
+
+    tmp = tempfile.mkdtemp(prefix="vcoder_13b_")
+    try:
+        d = os.path.join(tmp, DIR_13B)
+        t0 = time.perf_counter()
+        save_pretrained(d, params, cfg)
+        full_vocab_tokenizer(cfg).save_pretrained(d)
+        laps["save"] = round(time.perf_counter() - t0, 1)
+        size = _dir_gib(d)
+        out["dir_gib"], out["written_gib"] = round(size, 2), round(disk_gib + size, 2)
+        log(f"  16c: save_pretrained {size:.2f} GiB in {laps['save']} s; the run's checkpoint "
+            f"writes {disk_gib:.2f} + {size:.2f} = {disk_gib + size:.2f} GiB (budget "
+            f"{DISK_BUDGET_GIB} GiB)")
+        if disk_gib + size > DISK_BUDGET_GIB:
+            raise SystemExit(f"phase 16: {disk_gib + size:.2f} GiB of checkpoint writes exceed "
+                             f"the budget of {DISK_BUDGET_GIB} GiB")
+
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        quantize_params(params, bits=8)  # in place: the model's tree is this one
+        torch.cuda.synchronize()
+        laps["quantize"] = round(time.perf_counter() - t0, 1)
+        over = torch.cuda.max_memory_allocated() - before
+        out["int8_gib"], out["quant_peak_over_bf16_gib"] = (gib(torch.cuda.memory_allocated()),
+                                                            gib(over))
+        log(f"  quantize_params(bits=8) in place: {out['int8_gib']} GiB int8 tree from "
+            f"{gib(before)} GiB bf16 in {laps['quantize']} s; peak {gib(over)} GiB over the bf16 "
+            f"tree (bound {QUANT_PEAK_GIB})")
+        if over > QUANT_PEAK_GIB * 2**30:
+            raise SystemExit(f"phase 16: in-place quantization peaked {gib(over)} GiB over the "
+                             f"bf16 tree")
+        _, st = _run_engine("E13 (int8 weights, int8 pools)", cfg, params, [preps[:4]],
+                            max_new=32, max_batch=4, model_name=DIR_13B, kv_quant=True)
+        c = st["counts"][0]
+        _quant_engine_gate("E13", c, 4, L, int4=False)
+        out["E13"] = dict(ttft_p50_ms=round(st["ttft_p50_ms"][0], 1),
+                          step_p50_ms=round(st["step_p50_ms"][0], 2),
+                          decode_tok_s=round(st["decode_tok_s"][0], 1),
+                          pools_gib=round(st["pool_gib"], 2))
+        for k in ("flash", "q8", "int8_scaled"):
+            totals[k] = totals.get(k, 0) + c[k]
+        pictures = _images(np.random.RandomState(7), 480, 640)
+        on, _, _ = _prefill_routes(params, cfg, tok, pictures, plain=False)
+        oq.set_w8a8(False)
+        try:
+            off, _, _ = _prefill_routes(params, cfg, tok, pictures, plain=False)
+        finally:
+            oq.set_w8a8(True)
+        gap = ((on.float() - off.float()).norm() / off.float().norm()).item()
+        out["w8a8_gap_rel_l2"] = gap
+        log(f"  E13's B=1 prefill logits, W8A8 on against off (bf16 upcast): relative L2 "
+            f"{gap:.4e}, argmax {int(on.argmax())} vs {int(off.argmax())} (a reading)")
+        laps["16c"] = round(time.perf_counter() - t_phase - sum(laps.values()), 1)
+
+        del params, model, on, off
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, model4, *_ = load_pretrained_model(d, load_4bit=True)
+        torch.cuda.synchronize()
+        laps["load_4bit"] = round(time.perf_counter() - t0, 1)
+        out["load_s"] = laps["load_4bit"]
+        out["load_peak_gib"] = gib(torch.cuda.max_memory_allocated() - held)
+        out["int4_gib"] = gib(torch.cuda.memory_allocated() - held)
+        log(f"  16d: load_pretrained_model(load_4bit=True) in {laps['load_4bit']} s: "
+            f"{out['int4_gib']} GiB int4 tree, peak {out['load_peak_gib']} GiB over the load "
+            f"({gib(held)} GiB held before), host RSS {_rss_gib():.1f} GiB")
+        cfg4 = model4.config
+        if cfg4.text.num_layers != L or cfg4.model_type != cfg.model_type:
+            raise SystemExit(f"phase 16: the 13B directory loaded as {cfg4.model_type}, "
+                             f"{cfg4.text.num_layers} layers")
+        torch.cuda.reset_peak_memory_stats()
+        _, st = _run_engine("D13 (int4 weights, int8 pools)", cfg4, model4.params, [preps],
+                            max_new=32, max_batch=16, model_name=DIR_13B, kv_quant=True)
+        c = st["counts"][0]
+        _quant_engine_gate("D13", c, 16, L, int4=True)
+        out["D13"] = dict(ttft_p50_ms=round(st["ttft_p50_ms"][0], 1),
+                          step_p50_ms=round(st["step_p50_ms"][0], 2),
+                          decode_tok_s=round(st["decode_tok_s"][0], 1),
+                          pools_gib=round(st["pool_gib"], 2),
+                          peak_gib=gib(torch.cuda.max_memory_allocated()))
+        for k in ("flash", "q8", "int4", "int8_scaled"):
+            totals[k] = totals.get(k, 0) + c[k]
+        del model4
+        gc.collect()
+        torch.cuda.empty_cache()
+        laps["16d"] = round(time.perf_counter() - t_phase - sum(laps.values()), 1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    laps["phase"] = round(time.perf_counter() - t_phase, 1)
+    out["laps"] = laps
+    log(f"phase16: {json.dumps(out)}")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -5308,6 +5660,7 @@ def main() -> int:
     phase_paged_kernels(report)
     phase_fused_kernels(report)
     phase_quant_kernels(report)
+    phase_kernels_13b(report)
     from vcoder_tpu_torch.config import VCoderConfig
 
     cfg7 = VCoderConfig.standard("vcoder_ds_llava", "7b")
@@ -5317,7 +5670,7 @@ def main() -> int:
     check_flash_training(report, layout)
     phase_flash_bwd_kernels(report, layout)
     lap("kernels_flash_bwd")
-    cfg, params, model, tok = build_7b()
+    cfg, params, model, tok = build_model()
     main_counts = phase_main_path(cfg, params, model, tok)
     lap("main_path")
     log("engines (phase 6): VCoder-DS-7B, max_batch 8, max_len 2048, page 64, EOS off")
@@ -5373,6 +5726,9 @@ def main() -> int:
 
     p10 = phase_surfaces(cfg, held, tok10, main_counts["requests"], then=in_checkpoint_dir)
     lap("surfaces_cost_eval_train_stages")
+    log("VCoder-DS-13B (phase 16): B=1 generate, engines A13, E13 and D13, a 13B directory")
+    p16 = phase_13b(p10["written_gib"])
+    lap("13b")
     p15 = phase_sharded()
     lap("sharded")
     launches["flash_fwd"] += p10["flash"] + p11["flash"] + p13["flash"] + p14["flash"]
@@ -5389,6 +5745,12 @@ def main() -> int:
     launches["int4_matmul"] += p15["int4"]
     launches["int8_mm"] += p15["int8"]
     launches["int8_mm_scaled"] += p15["int8_scaled"]
+    launches["flash_fwd"] += p16["flash"]
+    launches["vit_block"] += p16["vit"]
+    launches["paged_attn_k8"] += p16["k8"]
+    launches["paged_attn_q8"] += p16["q8"]
+    launches["int4_matmul"] += p16["int4"]
+    launches["int8_mm_scaled"] += p16["int8_scaled"]
     for entry in report:
         entry["launches"] = launches[entry["name"]]
     log(f"launches on the driven paths: {json.dumps(launches)}")

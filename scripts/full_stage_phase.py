@@ -5,7 +5,7 @@ Adam moments offloaded, then its resident/offloaded A/B.
     python3 scripts/full_stage_phase.py
 
 Builds the kernels (phase 2), VCoder-DS-7B with seeded random bf16 weights
-(``build_7b``), writes them and ``full_vocab_tokenizer``'s tokenizer as
+(``build_model``), writes them and ``full_vocab_tokenizer``'s tokenizer as
 phase 10 does into a temporary ``SURFACE_DIR`` directory, drops the weights
 and runs ``phase_full_stage`` on that directory, which logs and gates as
 in the whole run. ~185 s of command time on an H100.
@@ -34,7 +34,7 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = cs.phase_device()
     cs.phase_build()
-    cfg, params, model, _ = cs.build_7b()
+    cfg, params, model, _ = cs.build_model()
     tmp = tempfile.mkdtemp(prefix="full_stage_")
     try:
         d = os.path.join(tmp, cs.SURFACE_DIR)

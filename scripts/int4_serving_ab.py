@@ -44,7 +44,7 @@ def main() -> int:
     cs.log(f"checkout {ROOT}")
     cs.phase_device()
     _kernels.build(["flash_fwd", "gemm_bias", "vit_mlp", "paged_attn", "int4_matmul", "int8_mm"])
-    cfg, params, _, tok = cs.build_7b()
+    cfg, params, _, tok = cs.build_model()
     q4 = quantize_params(params, bits=4, destroy=False)
     ids = tokenizer_depth_seg_token(cs.PROMPT, tok)
     preps = [cs._prepared(ids, cs._images(np.random.RandomState(11), h, w), 32)[0]

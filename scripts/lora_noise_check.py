@@ -97,7 +97,7 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = cs.phase_device()
     cs.phase_build()
-    cfg, params, _, _ = cs.build_7b(device="cuda")
+    cfg, params, _, _ = cs.build_model(device="cuda")
     clip.FUSED_BLOCKS = False
     results = {}
     for std in B_STDS:

@@ -362,7 +362,7 @@ def engines(base) -> None:
 
     from vcoder_tpu_torch.mm_tokens import tokenizer_depth_seg_token
 
-    cfg, params, _, tok = cs.build_7b()
+    cfg, params, _, tok = cs.build_model()
     rng = np.random.RandomState(11)
     ids = tokenizer_depth_seg_token(cs.PROMPT, tok)
     preps = [cs._prepared(ids, cs._images(rng, h, w), 32)[0] for h, w in cs.ENGINE_SIZES]

@@ -130,7 +130,7 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = cs.phase_device()
     cs.phase_build()
-    cfg, params, _, _ = cs.build_7b()
+    cfg, params, _, _ = cs.build_model()
     products = cs.check_row_split(params)
     traffic = cs.sharded_traffic(cfg)
     engines = {"A": cs.SHARDED_ENGINES["A"]}

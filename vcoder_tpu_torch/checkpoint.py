@@ -57,11 +57,19 @@ _ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
 
 
 def read_safetensors(path: str) -> StateDict:
-    """Read a .safetensors file into CPU tensors."""
-    with open(path, "rb") as f:
+    """Read a .safetensors file into CPU tensors. The data is read once,
+    into one buffer the tensors view (a 13B checkpoint is 25 GiB: the host
+    holds it once, not twice)."""
+    with open(path, "rb", buffering=0) as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-        data = bytearray(f.read())
+        data = bytearray(os.fstat(f.fileno()).st_size - 8 - n)
+        view, got = memoryview(data), 0
+        while got < len(data):
+            k = f.readinto(view[got:])
+            if not k:
+                raise ValueError(f"{path}: file ended {len(data) - got} bytes early")
+            got += k
     out: StateDict = {}
     for name, meta in header.items():
         if name == "__metadata__":
@@ -176,20 +184,32 @@ def auto_upgrade(model_dir: str, assume_yes: bool = False) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _t(x: torch.Tensor) -> torch.Tensor:
-    return x.t().contiguous()
+def _t(x: torch.Tensor, device=None) -> torch.Tensor:
+    """``x`` transposed into a new contiguous tensor; with ``device``, ``x``
+    is moved there first and transposed there."""
+    return x.to(device).t().contiguous()
 
 
-def _stack(state: StateDict, fmt: str, n: int, transpose: bool) -> torch.Tensor:
+def _stack(state: StateDict, fmt: str, n: int, transpose: bool, device=None) -> torch.Tensor:
+    """The ``n`` layers' tensors stacked on a new axis 0 (each matrix
+    transposed when asked), copied once into one tensor on ``device`` (the
+    state's by default): each layer is moved as stored, then transposed in
+    place there, so a load onto the card transposes on the card."""
     mats = [state[fmt.format(i=i)] for i in range(n)]
-    return torch.stack([_t(m) if transpose else m for m in mats], dim=0)
+    shape = tuple(mats[0].shape)[::-1] if transpose else tuple(mats[0].shape)
+    out = torch.empty((n,) + shape, dtype=mats[0].dtype,
+                      device=mats[0].device if device is None else device)
+    for i, m in enumerate(mats):
+        m = m.to(out.device)
+        out[i].copy_(m.t() if transpose else m)
+    return out
 
 
-def import_llama(state: StateDict, cfg: TextConfig, prefix: str = "model.") -> dict:
+def import_llama(state: StateDict, cfg: TextConfig, prefix: str = "model.", device=None) -> dict:
     p = prefix
 
     def lay(name, transpose=True):
-        return _stack(state, p + "layers.{i}." + name, cfg.num_layers, transpose)
+        return _stack(state, p + "layers.{i}." + name, cfg.num_layers, transpose, device)
 
     return {
         "embed_tokens": state[p + "embed_tokens.weight"],
@@ -205,7 +225,7 @@ def import_llama(state: StateDict, cfg: TextConfig, prefix: str = "model.") -> d
             "down_proj": lay("mlp.down_proj.weight"),
         },
         "norm": state[p + "norm.weight"],
-        "lm_head": _t(state["lm_head.weight"]),
+        "lm_head": _t(state["lm_head.weight"], device),
     }
 
 
@@ -241,7 +261,8 @@ _LLAMA_LAYER_MAP = [
 ]
 
 
-def import_clip(state: StateDict, cfg: VisionConfig, prefix: str = "vision_model.") -> dict:
+def import_clip(state: StateDict, cfg: VisionConfig, prefix: str = "vision_model.",
+                device=None) -> dict:
     """HF CLIPVisionModel state dict -> clip parameters (HF spells the
     pre-layernorm ``pre_layrnorm``)."""
     D, p = cfg.hidden_size, prefix
@@ -249,35 +270,39 @@ def import_clip(state: StateDict, cfg: VisionConfig, prefix: str = "vision_model
     pre = p + "pre_layrnorm." if p + "pre_layrnorm.weight" in state else p + "pre_layernorm."
     return {
         "class_embedding": state[p + "embeddings.class_embedding"].reshape(D),
-        "patch_embedding": _t(conv.reshape(D, -1)),
+        "patch_embedding": _t(conv.reshape(D, -1), device),
         "position_embedding": state[p + "embeddings.position_embedding.weight"],
         "pre_layernorm": {"scale": state[pre + "weight"], "bias": state[pre + "bias"]},
         "layers": {
-            ours: _stack(state, p + "encoder.layers.{i}." + hf, cfg.num_layers, tr)
+            ours: _stack(state, p + "encoder.layers.{i}." + hf, cfg.num_layers, tr, device)
             for hf, ours, tr in _CLIP_LAYER_MAP
         },
     }
 
 
-def import_projector(state: StateDict, prefix: str, projector_type: str = "mlp2x_gelu") -> dict:
+def import_projector(state: StateDict, prefix: str, projector_type: str = "mlp2x_gelu",
+                     device=None) -> dict:
     """HF Sequential(Linear, GELU, Linear, ...) (Linears at 0, 2, 4, ...) or a
     bare Linear -> projector parameters."""
     depth = projector_depth(projector_type)
     if depth == 0:
         return {"w": [], "b": []}
     if prefix + ".weight" in state:
-        return {"w": [_t(state[prefix + ".weight"])], "b": [state[prefix + ".bias"]]}
+        return {"w": [_t(state[prefix + ".weight"], device)], "b": [state[prefix + ".bias"]]}
     return {
-        "w": [_t(state[f"{prefix}.{2 * i}.weight"]) for i in range(depth)],
+        "w": [_t(state[f"{prefix}.{2 * i}.weight"], device) for i in range(depth)],
         "b": [state[f"{prefix}.{2 * i}.bias"] for i in range(depth)],
     }
 
 
-def import_vcoder(state: StateDict, cfg: VCoderConfig) -> dict:
-    """Full VCoder/LLaVA checkpoint state dict -> parameters."""
+def import_vcoder(state: StateDict, cfg: VCoderConfig, device=None) -> dict:
+    """Full VCoder/LLaVA checkpoint state dict -> parameters. With
+    ``device``, the transposed and stacked leaves are made there (the other
+    leaves stay where the state holds them)."""
     params = {
-        "lm": import_llama(state, cfg.text, prefix="model."),
-        "mm_projector": import_projector(state, "model.mm_projector", cfg.mm_projector_type),
+        "lm": import_llama(state, cfg.text, prefix="model.", device=device),
+        "mm_projector": import_projector(state, "model.mm_projector", cfg.mm_projector_type,
+                                         device),
     }
     for cand in (
         "model.vision_tower.vision_tower.vision_model.",
@@ -285,7 +310,7 @@ def import_vcoder(state: StateDict, cfg: VCoderConfig) -> dict:
         "vision_model.",
     ):
         if cand + "embeddings.class_embedding" in state:
-            params["vision_tower"] = import_clip(state, cfg.vision, cand)
+            params["vision_tower"] = import_clip(state, cfg.vision, cand, device)
             break
 
     def _has_proj(prefix: str) -> bool:
@@ -293,15 +318,15 @@ def import_vcoder(state: StateDict, cfg: VCoderConfig) -> dict:
 
     if cfg.use_mm2_proj and _has_proj("model.mm2_projector"):
         params["mm2_projector"] = import_projector(
-            state, "model.mm2_projector", cfg.mm_projector_type
+            state, "model.mm2_projector", cfg.mm_projector_type, device
         )
     if cfg.use_seg and _has_proj("model.seg_mm_projector"):
         params["seg_projector"] = import_projector(
-            state, "model.seg_mm_projector", cfg.seg_mm_projector_type
+            state, "model.seg_mm_projector", cfg.seg_mm_projector_type, device
         )
     if cfg.use_depth and _has_proj("model.depth_mm_projector"):
         params["depth_projector"] = import_projector(
-            state, "model.depth_mm_projector", cfg.depth_mm_projector_type
+            state, "model.depth_mm_projector", cfg.depth_mm_projector_type, device
         )
     if cfg.use_vcoder_lm_emb:
         params["vcoder_lm_emb"] = state.get(
@@ -427,6 +452,14 @@ def _place(params, dtype, dev, place=None, prefix: str = ""):
     return place(prefix, put(params))
 
 
+def _import_for(state: StateDict, cfg: VCoderConfig, dev, place):
+    """:func:`import_vcoder` for a load onto ``dev``: the stacked and
+    transposed leaves are made on ``dev`` directly (each layer moved as
+    stored, transposed there), unless ``place`` shards each leaf as it
+    arrives, which needs one whole leaf on the device at a time."""
+    return import_vcoder(state, cfg, device=dev if place is None else None)
+
+
 def _read_config(model_dir: str) -> VCoderConfig:
     with open(os.path.join(model_dir, "config.json")) as f:
         return VCoderConfig.from_hf_config(json.load(f))
@@ -444,7 +477,7 @@ def load_hf_checkpoint(model_dir: str, *, dtype=torch.bfloat16, device="cuda",
     state = load_state(model_dir)
     if state_overlay:
         state.update(state_overlay)
-    return cfg, _place(import_vcoder(state, cfg), dtype, dev, place)
+    return cfg, _place(_import_for(state, cfg, dev, place), dtype, dev, place)
 
 
 def load_lora_checkpoint(model_path: str, model_base: str, *, dtype=torch.bfloat16,
@@ -482,7 +515,7 @@ def load_lora_checkpoint(model_path: str, model_base: str, *, dtype=torch.bfloat
         w = state[w_name]
         delta = scale * (b.float() @ a.float())  # [out, r] @ [r, in]
         state[w_name] = (w.float() + delta).to(w.dtype)
-    return cfg, _place(import_vcoder(state, cfg), dtype, dev, place)
+    return cfg, _place(_import_for(state, cfg, dev, place), dtype, dev, place)
 
 
 def _is_jax_leaf(leaf, name: str, fields) -> bool:
