@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``vcoder_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py                  # every phase (1-4, 6, 7, 8, 9, 12, 5, 11a, 10,
-                                           # 11, 13, 14, 16, 15)
+                                           # 11, 13, 14, 16, 17, 15)
     python3 chip_smoke.py --profile        # also torch.profiler: two B=1 requests,
                                            # the paged engine's decode step at B=8,
                                            # in bf16, with int4/int8 weights and with
@@ -80,7 +80,11 @@ Phases, in order; any failure exits non-zero:
    (decode at B=4, 8 and 16, verify w=4) at KH=40 over 40-layer pools
    (``PAGED_CASES_13B``); K7's bf16 and int8 decode (``FUSED_CASES_13B``);
    K5 at B=1, 8 and 16 over the four 13B products (``INT4_SHAPES_13B``);
-   K10 in both forms at M=1232 and 1792 over three (``INT8_CASES_13B``).
+   K10 in both forms at M=1232 and 1792 over three (``INT8_CASES_13B``);
+   and, after the 7B training cases, K1's training shape and K6 on the
+   rows of phase 8's first batch at H=KH=40 (``check_training_13b``: the
+   7B cases' gates and timings, noted on ``flash_fwd_train`` and
+   ``flash_bwd``).
 4. Main path at full width: VCoder-DS-7B with seeded random bf16 weights
    (built once, shared with phase 6) serves 3 requests (RGB + seg + depth,
    non-square, made from a numpy seed) through ``process_images``,
@@ -243,7 +247,32 @@ Phases, in order; any failure exits non-zero:
    ``load_pretrained_model(dir, load_4bit=True)`` (seconds and peak
    logged), engine D13 (int4 weights, int8 pools, ``max_batch`` 16, 16
    requests; 281 K5 a step and 1 an admission, 418 K10, 40 K4); the
-   directory is deleted. One ``phase16: {...}`` line holds the readings.
+   directory is deleted after phase 17 has run in it. One ``phase16:
+   {...}`` line holds the readings.
+17. VCoder-DS-13B training at full width and depth (``phase_train_13b``),
+   in phase 16's directory once D13's tree is freed, over
+   ``make_train_tree``'s COST tree, the weight files through pipes (no
+   weight file written). 17a: ``vcoder_ds_train``'s parser and
+   ``run_stage`` in this process, B=4, ``--model-max-length 2048``,
+   ``TRAIN_STEPS_13B`` steps; gated on finite losses, non-zero seg-projector
+   and ``vcoder_lm_emb`` gradients and a zero depth-projector gradient every
+   step, per step 80 K1, 40 K6 and 23 ViT blocks and no other kernel,
+   ``final/`` a 40-layer ``vcoder_ds_llava``, the piped headers, the peak
+   at most ``PEAK_ESTIMATE_GIB``, and the kernel route's gradients on the
+   trained tree within ``GRAD_ROUTE_REL_L2`` of the plain route's. 17b:
+   ``vcoder_it``'s parser and ``run_stage`` with ``vcoder_it_lora.sh``'s
+   flags (``--lora-enable``, r 128, alpha 256, lr 2e-4) from a llava-typed
+   directory hard-linked beside it, B=``IT_LORA_BATCH`` x accumulation =
+   16 rows an update, ``IT_LORA_UPDATES`` updates; gated on finite losses,
+   every ``b`` and the seg projector's gradient non-zero on every
+   micro-batch, every ``a``'s exactly 0 through the first two updates (the
+   first runs at lr 0) and non-zero in the third, two frozen leaves bit for
+   bit, per micro-batch 80 K1, 40 K6, 23 ViT blocks and no other kernel,
+   the seven products' ``a``/``b`` at rank 128 over 40 layers in
+   ``adapters.safetensors``, ``final/`` merged, and the merge's peak over
+   what it starts from within the merged weights plus
+   ``MERGE_SLACK_GIB``. One ``phase17: {...}`` line holds step ms, valid
+   tokens/s, peaks, load and merge seconds.
 15. The mesh, last (``phase_sharded``; alone ``scripts/multichip_phase.py``):
    in this process the one-device run on fresh 7B weights (the tower on
    its unfused blocks and the B=1 prefills on the attention route the
@@ -275,7 +304,7 @@ Phases, in order; any failure exits non-zero:
 
 The card machine's disk takes ~45 GiB of writes a run (deleted files
 count); phase 10's directory takes 13.5 of them and phase 16's 13B
-directory ~25: phases 13 and 14 write
+directory ~25: phases 13, 14 and 17 write
 their weight files (step checkpoint, adapters, ``final/model.safetensors``)
 through named pipes into reader threads that check each header and byte
 count (``piped_weights``); their small files are written as files.
@@ -626,7 +655,8 @@ def check_flash_bwd(case: dict, report: list) -> None:
     time, each kernel's under the profiler, the plain version's, the plain
     delta pass the dq kernel replaced, and SDPA's backward in its flash form
     (``is_causal`` over the first L_max rows and keys) and with the boolean
-    mask."""
+    mask; with ``case["note"]`` the same readings noted on the ``flash_bwd``
+    entry (:func:`note_case`)."""
     import torch
     import torch.nn.functional as F
 
@@ -697,15 +727,17 @@ def check_flash_bwd(case: dict, report: list) -> None:
         f"it replaced {delta_torch_ms:.4f})  plain {plain_ms:.4f} ms  sdpa backward with the "
         f"boolean mask {lib_masked_ms:.4f} ms{flash_note}  bound {b_ms:.4f} ms ({b_by}; "
         f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB)")
+    row = dict(max_abs_err=max(agree[nm]["max_abs_err"] for nm in ("dq", "dk", "dv")),
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+               library_masked_ms=lib_masked_ms, dq_ms=split["flash_bwd_dq"],
+               dkv_ms=split["flash_bwd_dkv"], delta_torch_ms=delta_torch_ms)
+    if case.get("note"):
+        note_case(report, "flash_bwd", case["name"], row)
+        return
     report.append(dict(name="flash_bwd", route="cuda",
                        source="vcoder_tpu_torch/csrc/flash_bwd.cu",
                        replaces="vcoder_tpu/ops/flash_attention.py:446",
-                       launches=0,
-                       max_abs_err=max(agree[nm]["max_abs_err"] for nm in ("dq", "dk", "dv")),
-                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=lib_ms, library_masked_ms=lib_masked_ms,
-                       dq_ms=split["flash_bwd_dq"], dkv_ms=split["flash_bwd_dkv"],
-                       delta_torch_ms=delta_torch_ms, status="ok"))
+                       launches=0, **row, status="ok"))
 
 
 def _k6_cases(layout):
@@ -2087,6 +2119,35 @@ def check_flash_training(report: list, layout) -> None:
     fa.launches = 0  # comparison launches do not count
 
 
+def check_training_13b(report: list, layout) -> None:
+    """K1 and K6 at the 13B training step's shape: the rows of phase 8's
+    first batch (``layout``: B=4, T=S its bucket) at H=KH=40, where a 13B
+    step launches K1 80 times and K6 40 (phase 17). Gated as the 7B cases
+    (K1 on max-abs and LSE, K6 on relative L2 per gradient and per 64-row
+    tile, the output gradient 0 on pad rows), timed beside their bounds and
+    SDPA, and noted under ``cases_13b`` on the ``flash_fwd_train`` and
+    ``flash_bwd`` entries."""
+    import torch
+
+    from vcoder_tpu_torch.ops import flash_attention as fa
+
+    pos, mask = layout
+    B, T = pos.shape
+    lens = [int(n) for n in np.asarray(mask).sum(axis=1)]
+    case = _flash_case(f"flash_fwd 13B training B={B} T={T} H=KH=40 rows {lens}", B, T, T, 40,
+                       40, 128, causal=True, layout=layout, seed=15)
+    case["note"] = "flash_fwd_train"
+    check_flash(case, report)
+    del case
+    case = _flash_bwd_case(f"flash_bwd 13B B={B} T={T} H=KH=40 rows {lens}", B, T, T, 40, 40,
+                           layout=layout, seed=16)
+    case["report"] = case["note"] = True
+    check_flash_bwd(case, report)
+    del case
+    torch.cuda.empty_cache()
+    fa.launches = fa.bwd_launches = 0  # comparison launches do not count
+
+
 def _images(rng, h, w):
     rgb = rng.randint(0, 256, (h, w, 3), dtype=np.uint8)
     seg = np.repeat(np.repeat(rng.randint(0, 256, (h // 16 + 1, w // 16 + 1, 3),
@@ -2711,7 +2772,7 @@ def _with_cloned(tree, paths, prefix=""):
 GRAD_ROUTE_REL_L2 = 0.2
 
 
-def route_agreement(cfg, params, ds, T, stage, plain=None) -> dict:
+def route_agreement(cfg, params, ds, T, stage, plain=None, device="cuda") -> dict:
     """The kernel route's trainable gradients against the plain route's on
     one sample (``ds[0]`` padded to ``T``) through every layer with
     per-layer remat: ``attn_impl="auto"`` (the kernels) against ``"xla"``
@@ -2729,7 +2790,7 @@ def route_agreement(cfg, params, ds, T, stage, plain=None) -> dict:
 
     batch = collate_batch([ds[0]], num_patches=cfg.vision.num_patches, ds_mode=True,
                           use_seg=True, use_depth=True, image_size=cfg.vision.image_size,
-                          pad_to=T, device="cuda")
+                          pad_to=T, device=device)
     leaves = trainable_leaves(params, stage)
 
     def route_grads(attn_impl):
@@ -2749,7 +2810,7 @@ def route_agreement(cfg, params, ds, T, stage, plain=None) -> dict:
     if set(gk) != set(gp):
         raise SystemExit(f"training phase: the routes differentiate other leaves "
                          f"({sorted(gk)} vs {sorted(gp)})")
-    torch.cuda.synchronize()
+    _sync(device)
     num = sum((gk[k].float() - gp[k].float()).square().sum() for k in gp)
     den = sum(gp[k].float().square().sum() for k in gp)
     per_leaf = {k: ((gk[k].float() - gp[k].float()).norm() / gp[k].float().norm()).item()
@@ -4368,12 +4429,13 @@ def make_train_tree(root: str) -> None:
 
 
 @contextlib.contextmanager
-def timed_train_steps(records: list, device: str = "cuda"):
+def timed_train_steps(records: list, device: str = "cuda", first=None):
     """Time every step of the ``Trainer``s built inside the block: each step
     appends ``ms`` (CUDA events around the step on the card, the host clock
     on the CPU), the batch's ``T`` and valid ``tokens``, the per-leaf
     gradient ``norms``, and for an offloaded step its stager's ``copies``
-    (``StateStager.pop_stats``: H2D, D2H and update ms, the pass's wall)."""
+    (``StateStager.pop_stats``: H2D, D2H and update ms, the pass's wall).
+    ``first(params)`` runs before the first step."""
     import torch
 
     from vcoder_tpu_torch.train import trainer as trainer_mod
@@ -4384,6 +4446,8 @@ def timed_train_steps(records: list, device: str = "cuda"):
         inner = make_step(*a, **kw)
 
         def timed(p, state, batch):
+            if first is not None and not records:
+                first(p)
             t0 = time.perf_counter()
             if device == "cuda":
                 start = torch.cuda.Event(enable_timing=True)
@@ -4423,14 +4487,75 @@ def piped_train_keys(trainer) -> dict:
     from vcoder_tpu_torch.tree import named_leaves
 
     n_layers = trainer.cfg.text.num_layers
+    # The state's keys from the optimizer (a LoRA driver releases the state
+    # before its merge).
+    state = trainer.optimizer.init({p: t.to("meta") for p, t in
+                                    trainable_leaves(trainer.params, trainer.args.stage).items()})
     return {
         f"checkpoint-{trainer.step}/state.safetensors.tmp":
             {f"params/{p}" for p, _ in named_leaves(trainer.params)}
-            | {f"opt/{k}" for k in trainer.opt_state} | {"step"},
+            | {f"opt/{k}" for k in state} | {"step"},
         "adapters.safetensors": set(trainable_leaves(trainer.params, trainer.args.stage)),
         "final/model.safetensors": {"model.embed_tokens.weight"}
             | {f"model.layers.{i}.self_attn.q_proj.weight" for i in range(n_layers)},
     }
+
+
+@contextlib.contextmanager
+def timed_loads(laps: dict, device: str = "cuda"):
+    """The seconds of the ``builder.load_pretrained_model`` calls made inside
+    the block, summed into ``laps["load_s"]``."""
+    from vcoder_tpu_torch import builder
+
+    load = builder.load_pretrained_model
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            res = load(*a, **kw)
+            _sync(device)
+            return res
+        finally:
+            laps["load_s"] = laps.get("load_s", 0.0) + time.perf_counter() - t0
+
+    builder.load_pretrained_model = timed
+    try:
+        yield laps
+    finally:
+        builder.load_pretrained_model = load
+
+
+def _drive_stage(main_fn, argv: list, out: str, steps: int, device: str, first=None) -> dict:
+    """A stage driver's ``main(argv)`` in this process, its weight files
+    through pipes, every step timed (``first`` as :func:`timed_train_steps`
+    takes it), the counters read from 0 and the peak of allocated device
+    memory from the load on. Returns the trainer, the steps' records, the
+    counts, the pipes' readings and sizes, ``metrics.jsonl``,
+    ``final/config.json``, the wall and the load's seconds."""
+    import gc
+
+    import torch
+
+    records, laps = [], {}
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    with piped_weights(out, steps) as piped, timed_train_steps(records, device, first), \
+            timed_loads(laps, device):
+        trainer = main_fn(argv)
+    _sync(device)
+    res = dict(trainer=trainer, records=records, counts=_counters(), piped=piped,
+               wall=time.perf_counter() - t0, load_s=laps.get("load_s", float("nan")),
+               peak=torch.cuda.max_memory_allocated() if device == "cuda" else float("nan"))
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        res["metrics"] = [json.loads(line) for line in f]
+    with open(os.path.join(out, "final", "config.json")) as f:
+        res["final_config"] = json.load(f)
+    res["sizes"] = piped_gate(main_fn.__module__, piped, piped_train_keys(trainer))
+    return res
 
 
 def phase_train_stage(ckpt: str, device: str = "cuda") -> dict:
@@ -4470,33 +4595,20 @@ def phase_train_stage(ckpt: str, device: str = "cuda") -> dict:
                 "--image-folder", tree, "--output-dir", out,
                 "--per-device-train-batch-size", "4", "--model-max-length", "2048",
                 "--max-steps", str(TRAIN_STEPS), "--device", device]
-        records = []
-        gc.collect()
-        if device == "cuda":
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-        _reset_counters()
-        t0 = time.perf_counter()
-        with piped_weights(out, TRAIN_STEPS) as piped, timed_train_steps(records, device):
-            trainer = vcoder_ds_train.main(argv)
-        _sync(device)
-        wall = time.perf_counter() - t0
-        counts = _counters()
-        peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+        res = _drive_stage(vcoder_ds_train.main, argv, out, TRAIN_STEPS, device)
+        records, metrics, counts, wall, sizes = (res[k] for k in (
+            "records", "metrics", "counts", "wall", "sizes"))
+        peak = res["peak"] / 2**30
+        trainer = res.pop("trainer")
         routes, n_entries = dict(trainer.dataset.routes), len(trainer.dataset)
-        piped_keys = piped_train_keys(trainer)
         del trainer
         gc.collect()
         if device == "cuda":
             torch.cuda.empty_cache()
-        with open(os.path.join(out, "metrics.jsonl")) as f:
-            metrics = [json.loads(line) for line in f]
-        with open(os.path.join(out, "final", "config.json")) as f:
-            final_type = json.load(f).get("model_type")
+        final_type = res["final_config"].get("model_type")
         final_files = sorted(os.listdir(os.path.join(out, "final")))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    sizes = piped_gate("train stage", piped, piped_keys)
     for m, r in zip(metrics, records):
         seg = max(v for k, v in r["norms"].items() if k.startswith("seg_projector/"))
         log(f"  train stage step {m['step']}: T={r['T']} B=4, {r['tokens']} tokens, "
@@ -4670,8 +4782,7 @@ def full_stage_ab(trainer, device: str, tmp: str) -> dict:
     cfg, params, dataset, mesh = trainer.cfg, trainer.params, trainer.dataset, trainer.mesh
     # The stage's state goes: its pinned blocks return to the host
     # allocator's cache, where the offloaded run takes them again.
-    trainer.opt_state = trainer.step_fn = None
-    gc.collect()
+    trainer.release_state()
     leaves = trainable_leaves(params, "full")
     start = {p: t.detach().to("cpu", copy=True) for p, t in leaves.items()}
     start_digest = bits_digest(leaves, device)
@@ -4775,23 +4886,11 @@ def phase_full_stage(ckpt: str, device: str = "cuda", turns: int = LLAVA_TURNS) 
                 "--num-train-epochs", "1", "--per-device-train-batch-size", str(FULL_BATCH),
                 "--model-max-length", "2048", "--max-steps", str(FULL_STEPS),
                 "--offload-opt-state", "--device", device]
-        records = []
-        gc.collect()
-        if device == "cuda":
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-        _reset_counters()
-        t0 = time.perf_counter()
-        with piped_weights(out, FULL_STEPS) as piped, timed_train_steps(records, device):
-            trainer = train_mod.main(argv)
-        _sync(device)
-        wall = time.perf_counter() - t0
-        counts = _counters()
-        peak = torch.cuda.max_memory_allocated() if device == "cuda" else float("nan")
-        with open(os.path.join(out, "metrics.jsonl")) as f:
-            metrics = [json.loads(line) for line in f]
-        with open(os.path.join(out, "final", "config.json")) as f:
-            final_type = json.load(f).get("model_type")
+        res = _drive_stage(train_mod.main, argv, out, FULL_STEPS, device)
+        trainer, records, metrics, counts, wall, peak, sizes = (res[k] for k in (
+            "trainer", "records", "metrics", "counts", "wall", "peak", "sizes"))
+        final_type = res["final_config"].get("model_type")
+        del res
         state = trainer.opt_state
         host = {k: t for k, t in state.items() if t.ndim}
         pinned = sum(t.numel() * t.element_size() for t in host.values())
@@ -4803,7 +4902,6 @@ def phase_full_stage(ckpt: str, device: str = "cuda", turns: int = LLAVA_TURNS) 
         host_stats = ({k: v for k, v in torch.cuda.host_memory_stats().items()
                        if "bytes" in k and ".current" in k}
                       if device == "cuda" and hasattr(torch.cuda, "host_memory_stats") else {})
-        sizes = piped_gate("full stage", piped, piped_train_keys(trainer))
         for m, r in zip(metrics, records):
             lm = max(v for k, v in r["norms"].items() if k.startswith("lm/"))
             mm = max(v for k, v in r["norms"].items() if k.startswith("mm_projector/"))
@@ -5461,7 +5559,7 @@ def _quant_engine_gate(label: str, c: dict, n: int, L: int, int4: bool) -> None:
         raise SystemExit(f"engine {label}: launches {c} != {want} (bf16/k8/fused must be 0)")
 
 
-def phase_13b(disk_gib: float) -> dict:
+def phase_13b(disk_gib: float, then=None) -> dict:
     """Phase 16: VCoder-DS-13B at full width and depth (40 decoder layers,
     23 CLIP blocks), seeded random bf16 weights, EOS off, after every 7B
     tree is released. 16a: phase 4's 3 requests through ``generate`` (40
@@ -5475,8 +5573,9 @@ def phase_13b(disk_gib: float) -> dict:
     the B=1 prefill logits with W8A8 on and off. 16d: the int8 tree freed,
     the directory loaded by ``load_pretrained_model(load_4bit=True)``;
     engine D13, int4 weights, int8 pools, ``max_batch`` 16, 16 requests (281
-    K5 a step + 1 an admission, 418 K10, 40 K4). Returns the launch totals
-    and the readings."""
+    K5 a step + 1 an admission, 418 K10, 40 K4). ``then(dir)`` runs once
+    the int4 tree is freed, before the directory is deleted (phase 17).
+    Returns the launch totals and the readings."""
     import gc
 
     import torch
@@ -5625,12 +5724,301 @@ def phase_13b(disk_gib: float) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         laps["16d"] = round(time.perf_counter() - t_phase - sum(laps.values()), 1)
+        if then is not None:
+            then(d)
+            laps["then"] = round(time.perf_counter() - t_phase - sum(laps.values()), 1)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     laps["phase"] = round(time.perf_counter() - t_phase, 1)
     out["laps"] = laps
     log(f"phase16: {json.dumps(out)}")
     return totals
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: VCoder-DS-13B training, in phase 16's 13B directory
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS_13B = 4
+# 17b, scripts/v1_5/vcoder_it_lora.sh's recipe: adapters of rank 128, alpha
+# 256, over every decoder product, lr 2e-4, 16 rows a device per update.
+IT_LORA_FLAGS = ("--lora-enable", "--lora-r", "128", "--lora-alpha", "256",
+                 "--learning-rate", "2e-4")
+IT_LORA_ROWS = 16
+# The largest of 4, 2, 1 whose micro-batch fits an 80 GB card, as
+# ``scripts/phase17.py --find-it-lora-batch`` finds it: at B=4 (T=1536) the
+# step runs out of memory with 74.3 GiB allocated (PERF.md), LoRA's outputs
+# doubling the products remat "dots" saves.
+IT_LORA_BATCH = 2
+# The first update runs at lr 0 (the warmup's first point), so b is still 0
+# through the second update and a's gradient is 0 until the third.
+IT_LORA_UPDATES = 3
+LLAVA_DIR_13B = "llava-v1.5-13b"
+# The merge's peak over what is held before it: at most the merged weights
+# plus this (one layer's f32 fold and the allocator's rounding).
+MERGE_SLACK_GIB = 2.0
+# 17a's peak as estimated before the first run: the 25.35 GiB tree and ~41
+# GiB of activations under remat "dots" at B=4, T=2048. The measured peak
+# is gated at it, ~11 GiB below the card's 79.2 usable.
+PEAK_ESTIMATE_GIB = 68.0
+
+
+def train_launch_gate(label: str, counts: dict, layers: int, steps: int) -> None:
+    """Per step (or micro-batch) of a decoder of ``layers`` layers: ``2 x
+    layers`` K1 launches (the forward and its recomputation under remat),
+    ``layers`` K6 calls and 23 ViT blocks (one tower pass), and no other
+    kernel."""
+    want = dict(flash=2 * layers * steps, flash_bwd=layers * steps, vit=23 * steps, mlp=0, k8=0,
+                paged=0, int4=0, int8=0, int8_scaled=0)
+    if counts != want:
+        raise SystemExit(f"{label}: launches {counts} != {want}")
+
+
+@contextlib.contextmanager
+def measured_merge(out: dict, device: str = "cuda"):
+    """Read each ``lora.merge_lora`` call made inside the block: its seconds,
+    the bytes of the weights it merged, what was held on the device before
+    it and its peak over that (the peak before it goes to ``train_peak``)."""
+    import torch
+
+    from vcoder_tpu_torch import lora as lora_mod
+
+    merge = lora_mod.merge_lora
+    cuda = torch.device(device).type == "cuda"
+
+    def measured(params):
+        held = float("nan")
+        if cuda:
+            torch.cuda.synchronize()
+            out["train_peak"] = torch.cuda.max_memory_allocated()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        merged = merge(params)
+        _sync(device)
+        out["s"] = time.perf_counter() - t0
+        src, dst = _flat(params), _flat(merged)
+        out["merged"] = sum(dst[k].numel() * dst[k].element_size() for k, x in src.items()
+                            if isinstance(x, lora_mod.LoraWeight))
+        out["held"] = held
+        out["over"] = torch.cuda.max_memory_allocated() - held if cuda else 0
+        return merged
+
+    lora_mod.merge_lora = measured
+    try:
+        yield out
+    finally:
+        lora_mod.merge_lora = merge
+
+
+def _step_readings(res: dict, B: int) -> dict:
+    """Each step logged; steps 2-N p50 ms (CUDA events) and valid tokens/s."""
+    records = res["records"]
+    for m, r in zip(res["metrics"], records):
+        log(f"    step {m['step']}: T={r['T']} B={B}, {r['tokens']} tokens, {r['ms']:.1f} ms, "
+            f"{r['tokens'] / r['ms'] * 1e3:.0f} tokens/s, loss {m['loss']:.4f}, grad_norm "
+            f"{m['grad_norm']:.4f}")
+    return dict(step_ms_p50=float(np.median([r["ms"] for r in records[1:]])),
+                tokens_s=float(np.median([r["tokens"] / r["ms"] * 1e3 for r in records[1:]])),
+                T=records[0]["T"], losses=[m["loss"] for m in res["metrics"]])
+
+
+def _final_gate(res: dict, model_type: str, layers: int) -> list:
+    fc = res["final_config"]
+    if (fc.get("model_type"), fc.get("num_hidden_layers")) != (model_type, layers):
+        return [f"final/config.json: {fc.get('model_type')}, {fc.get('num_hidden_layers')} "
+                f"layers"]
+    return []
+
+
+def train_13b_ds(ckpt: str, tree: str, out: str, device: str = "cuda") -> dict:
+    """17a: VCoder-DS stage 3 as ``vcoder_ds_train.sh`` runs it, from the
+    13B directory ``ckpt`` over the COST tree ``tree``: B=4,
+    ``--model-max-length 2048``, ``TRAIN_STEPS_13B`` steps. Gates: finite
+    losses; non-zero seg-projector and ``vcoder_lm_emb`` gradients and an
+    exactly zero depth-projector gradient every step; per step 2L K1, L K6
+    and 23 ViT blocks and no other kernel; ``final/config.json`` naming
+    ``vcoder_ds_llava`` with the directory's L layers; the weight files'
+    headers; the peak at most ``PEAK_ESTIMATE_GIB``; the kernel route's trainable
+    gradients on the trained tree within ``GRAD_ROUTE_REL_L2`` of the plain
+    route's on one sample."""
+    from vcoder_tpu_torch.train import vcoder_ds_train
+
+    with open(os.path.join(ckpt, "config.json")) as f:
+        L = json.load(f)["num_hidden_layers"]
+    argv = ["--model-path", ckpt, "--seg-data-path", tree, "--depth-data-path", tree,
+            "--image-folder", tree, "--output-dir", out, "--per-device-train-batch-size", "4",
+            "--model-max-length", "2048", "--max-steps", str(TRAIN_STEPS_13B), "--device", device]
+    res = _drive_stage(vcoder_ds_train.main, argv, out, TRAIN_STEPS_13B, device)
+    trainer, records, metrics = res["trainer"], res["records"], res["metrics"]
+    read = _step_readings(res, 4)
+    bad = _final_gate(res, "vcoder_ds_llava", L)
+    if len(metrics) != TRAIN_STEPS_13B or len(records) != TRAIN_STEPS_13B or not all(
+            np.isfinite([m["loss"], m["grad_norm"]]).all() for m in metrics):
+        bad.append(f"{len(metrics)} metrics lines, {len(records)} steps, or a non-finite loss")
+    for i, r in enumerate(records):
+        seg = max(v for k, v in r["norms"].items() if k.startswith("seg_projector/"))
+        depth = [v for k, v in r["norms"].items() if k.startswith("depth_projector/")]
+        if not (seg > 0 and r["norms"]["vcoder_lm_emb"] > 0) or any(depth):
+            bad.append(f"step {i + 1}: seg_projector {seg}, vcoder_lm_emb "
+                       f"{r['norms']['vcoder_lm_emb']}, depth_projector {depth}")
+    log(f"  17a: peak {res['peak'] / 2**30:.2f} GiB allocated (estimated {PEAK_ESTIMATE_GIB})")
+    if device == "cuda" and not res["peak"] <= PEAK_ESTIMATE_GIB * 2**30:
+        bad.append(f"peak {res['peak'] / 2**30:.2f} GiB over the estimate {PEAK_ESTIMATE_GIB}")
+    if bad:
+        raise SystemExit("17a: " + "; ".join(bad))
+    train_launch_gate("17a", res["counts"], L, TRAIN_STEPS_13B)
+    t0 = time.perf_counter()
+    r = route_agreement(trainer.cfg, trainer.params, DSSamples(1, trainer.cfg.vision.image_size),
+                        read["T"], trainer.args.stage, device=device)
+    route_s = time.perf_counter() - t0
+    log(f"  17a: kernel vs plain route on one sample at T={read['T']}: loss "
+        f"{r['loss_kernel']:.5f} vs {r['loss_plain']:.5f}, trainable gradients rel L2 "
+        f"{r['rel']:.3e} (bound {GRAD_ROUTE_REL_L2}) per leaf "
+        f"{json.dumps({k: round(v, 4) for k, v in r['per_leaf'].items()})}")
+    if not r["rel"] <= GRAD_ROUTE_REL_L2:
+        raise SystemExit("17a: kernel route gradients disagree with the plain route")
+    return dict(read, counts=res["counts"], peak_gib=res["peak"] / 2**30,
+                load_s=res["load_s"], run_stage_s=res["wall"], route_s=route_s,
+                route_rel_l2=r["rel"], files_gib=res["sizes"])
+
+
+def _frozen_digest(params, device: str) -> str:
+    """Every bit of two frozen leaves: the decoder's q_proj (under its
+    adapter) and the tower's fc1."""
+    q = params["lm"]["layers"]["q_proj"]
+    return bits_digest({"q_proj": getattr(q, "base", q),
+                        "fc1": params["vision_tower"]["layers"]["fc1"]}, device)
+
+
+def _it_lora_gates(res: dict, accum: int, layers: int, before: str, device: str) -> list:
+    """17b's gates on the micro-batches' gradients, the frozen leaves and
+    the piped adapters and ``final/``."""
+    cfg, records, metrics = res["trainer"].cfg, res["records"], res["metrics"]
+    micro = IT_LORA_UPDATES * accum
+    bad = _final_gate(res, "vcoder_it_llava", layers)
+    if len(metrics) != micro or len(records) != micro or not all(
+            np.isfinite([m["loss"], m["grad_norm"]]).all() for m in metrics):
+        bad.append(f"{len(metrics)} metrics lines, {len(records)} micro-batches, or a "
+                   f"non-finite loss")
+    norms = [r["norms"] for r in records]
+    a_keys = sorted(k for k in norms[0] if k.endswith("/a"))
+    b_keys = sorted(k for k in norms[0] if k.endswith("/b"))
+    if len(a_keys) != len(LORA_TARGETS) or len(b_keys) != len(LORA_TARGETS):
+        bad.append(f"trainable adapters {a_keys} {b_keys}")
+    for i, n in enumerate(norms):
+        update = i // accum + 1
+        seg = max(v for k, v in n.items() if k.startswith("seg_projector/"))
+        if not (seg > 0 and all(n[k] > 0 for k in b_keys)):
+            bad.append(f"micro-batch {i + 1}: a zero b or seg_projector gradient")
+        a_moving = [n[k] > 0 for k in a_keys]
+        if (update <= 2 and any(a_moving)) or (update == IT_LORA_UPDATES and not all(a_moving)):
+            bad.append(f"micro-batch {i + 1} (update {update}): a gradients "
+                       f"{[n[k] for k in a_keys]}")
+    if _frozen_digest(res["trainer"].params, device) != before:
+        bad.append("q_proj or the tower's fc1 changed")
+    hdr = res["piped"]["adapters.safetensors"]["header"]
+    for name, (din, dout) in lora_dims(cfg.text).items():
+        for field, shape in (("a", [layers, din, 128]), ("b", [layers, 128, dout])):
+            got = hdr.get(f"lm/layers/{name}/{field}", {}).get("shape")
+            if got != shape:
+                bad.append(f"adapters.safetensors lm/layers/{name}/{field}: {got}, want {shape}")
+    if not all(any(k.startswith(f"{p}/") for k in hdr) for p in ("seg_projector", "mm_projector")):
+        bad.append("adapters.safetensors lacks a projector")
+    final = res["piped"]["final/model.safetensors"]["header"]
+    q = final.get("model.layers.0.self_attn.q_proj.weight", {}).get("shape")
+    if q != [cfg.text.num_heads * cfg.text.head_dim, cfg.text.hidden_size] or any(
+            "lora" in k or k.endswith((".a", ".b")) for k in final):
+        bad.append(f"final/ is not a merged checkpoint (q_proj {q})")
+    return bad
+
+
+def train_13b_it_lora(ckpt: str, tree: str, tmp: str, device: str = "cuda",
+                      batch: int = IT_LORA_BATCH) -> dict:
+    """17b: the VCoder-IT LoRA stage as ``vcoder_it_lora.sh`` runs it
+    (``IT_LORA_FLAGS``), from a llava-typed directory beside ``ckpt``
+    (:func:`write_llava_dir`: a hard link) over the COST tree's seg entries:
+    B=``batch`` x ``--gradient-accumulation-steps`` = ``IT_LORA_ROWS``,
+    ``IT_LORA_UPDATES`` updates. Gates (:func:`_it_lora_gates`): finite
+    losses; every ``b`` and the seg projector's gradient non-zero on every
+    micro-batch; every ``a`` gradient exactly 0 through the first two
+    updates (b is 0 until the second moves it) and non-zero in the last;
+    q_proj and the tower's fc1 kept bit for bit; ``adapters.safetensors``
+    holding ``a`` [L, in, 128] and ``b`` [L, 128, out] of the seven decoder
+    products and the projectors; ``final/`` merged, a ``vcoder_it_llava``
+    of L layers; per micro-batch 2L K1, L K6 and 23 ViT blocks and no other
+    kernel; the merge's peak over what it starts from at most the merged
+    weights plus ``MERGE_SLACK_GIB``."""
+    from vcoder_tpu_torch.train import vcoder_it
+
+    base = os.path.join(tmp, LLAVA_DIR_13B)
+    write_llava_dir(base, ckpt)
+    with open(os.path.join(base, "config.json")) as f:
+        L = json.load(f)["num_hidden_layers"]
+    accum = IT_LORA_ROWS // batch
+    micro = IT_LORA_UPDATES * accum
+    out = os.path.join(tmp, "it_lora")
+    argv = ["--model-path", base, "--seg-data-path", tree, "--image-folder", tree,
+            "--output-dir", out, "--per-device-train-batch-size", str(batch),
+            "--gradient-accumulation-steps", str(accum), "--model-max-length", "2048",
+            "--num-train-epochs", "8", "--max-steps", str(micro), "--device", device,
+            *IT_LORA_FLAGS]
+    before, merge = {}, {}
+    with measured_merge(merge, device):
+        res = _drive_stage(vcoder_it.main, argv, out, micro, device,
+                           first=lambda p: before.update(digest=_frozen_digest(p, device)))
+    read = _step_readings(res, batch)
+    bad = _it_lora_gates(res, accum, L, before.get("digest"), device)
+    gib = 2**30
+    bound = merge.get("merged", 0) + MERGE_SLACK_GIB * gib
+    log(f"  17b: merge {merge.get('s', float('nan')):.1f} s, {merge.get('merged', 0) / gib:.2f} "
+        f"GiB merged, {merge.get('held', float('nan')) / gib:.2f} GiB held before it, its peak "
+        f"{merge.get('over', float('nan')) / gib:.2f} GiB over that (bound {bound / gib:.2f})")
+    if "over" not in merge or merge["over"] > bound:
+        bad.append(f"the merge's peak {merge.get('over')} B over what it started from "
+                   f"exceeds {bound} B")
+    if bad:
+        raise SystemExit("17b: " + "; ".join(bad))
+    train_launch_gate("17b", res["counts"], L, micro)
+    return dict(read, B=batch, accum=accum, micro=micro, counts=res["counts"],
+                peak_gib=merge.get("train_peak", res["peak"]) / gib, merge_s=merge["s"],
+                merge_over_gib=merge["over"] / gib, merged_gib=merge["merged"] / gib,
+                held_gib=merge["held"] / gib, load_s=res["load_s"], run_stage_s=res["wall"],
+                files_gib=res["sizes"])
+
+
+def phase_train_13b(ckpt: str, device: str = "cuda") -> dict:
+    """Phase 17: VCoder-DS-13B training from phase 16's 13B directory
+    ``ckpt``, over :func:`make_train_tree`'s COST tree, no weight file
+    written (the stages' weight files go through pipes): 17a
+    (:func:`train_13b_ds`), then 17b (:func:`train_13b_it_lora`). Logs a
+    ``phase17: {...}`` line; returns the launch totals."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="vcoder_train_13b_")
+    try:
+        tree = os.path.join(tmp, "cost")
+        make_train_tree(tree)
+        log(f"  17a: vcoder_ds_train from {os.path.basename(ckpt)}, B=4, {TRAIN_STEPS_13B} steps "
+            f"(peak estimated {PEAK_ESTIMATE_GIB} GiB)")
+        a = train_13b_ds(ckpt, tree, os.path.join(tmp, "ds"), device)
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        log(f"  17b: vcoder_it --lora-enable from {LLAVA_DIR_13B} (a hard link), B="
+            f"{IT_LORA_BATCH} x {IT_LORA_ROWS // IT_LORA_BATCH} accumulated, {IT_LORA_UPDATES} "
+            f"updates")
+        b = train_13b_it_lora(ckpt, tree, tmp, device)
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase17: {json.dumps({'17a': a, '17b': b, 'phase_s': time.perf_counter() - t_phase})}")
+    return {k: a["counts"][k] + b["counts"][k] for k in ("flash", "flash_bwd", "vit")}
 
 
 def main() -> int:
@@ -5669,6 +6057,7 @@ def main() -> int:
     lap("kernels")
     check_flash_training(report, layout)
     phase_flash_bwd_kernels(report, layout)
+    check_training_13b(report, layout)
     lap("kernels_flash_bwd")
     cfg, params, model, tok = build_model()
     main_counts = phase_main_path(cfg, params, model, tok)
@@ -5726,8 +6115,10 @@ def main() -> int:
 
     p10 = phase_surfaces(cfg, held, tok10, main_counts["requests"], then=in_checkpoint_dir)
     lap("surfaces_cost_eval_train_stages")
-    log("VCoder-DS-13B (phase 16): B=1 generate, engines A13, E13 and D13, a 13B directory")
-    p16 = phase_13b(p10["written_gib"])
+    log("VCoder-DS-13B (phase 16): B=1 generate, engines A13, E13 and D13, a 13B directory; "
+        "then 13B training in it (phase 17)")
+    p17 = {}
+    p16 = phase_13b(p10["written_gib"], then=lambda d: p17.update(phase_train_13b(d)))
     lap("13b")
     p15 = phase_sharded()
     lap("sharded")
@@ -5751,6 +6142,10 @@ def main() -> int:
     launches["paged_attn_q8"] += p16["q8"]
     launches["int4_matmul"] += p16["int4"]
     launches["int8_mm_scaled"] += p16["int8_scaled"]
+    launches["flash_fwd"] += p17["flash"]
+    launches["flash_fwd_train"] += p17["flash"]
+    launches["flash_bwd"] += p17["flash_bwd"]
+    launches["vit_block"] += p17["vit"]
     for entry in report:
         entry["launches"] = launches[entry["name"]]
     log(f"launches on the driven paths: {json.dumps(launches)}")

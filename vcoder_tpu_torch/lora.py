@@ -192,6 +192,20 @@ def _fold(base, a: torch.Tensor, b: torch.Tensor, scale: float) -> torch.Tensor:
     return (base.float() + delta).to(base.dtype)
 
 
+def _merged_layers(x: LoraWeight) -> torch.Tensor:
+    """:func:`_fold` of a wrapper on one device. A layer-stacked leaf is
+    folded a layer at a time into one tensor of the merged dtype, so the f32
+    transients are one layer's (a 13B ``gate_proj`` stack is 10.5 GiB in
+    f32); the numbers are the whole-stack fold's."""
+    if x.base.ndim < 3:
+        return _fold(x.base, x.a, x.b, x.scale)
+    dtype = x.a.dtype if isinstance(x.base, QuantizedTensor) else x.base.dtype
+    merged = torch.empty(x.base.shape, dtype=dtype, device=_device(x.base))
+    for l in range(x.base.shape[0]):
+        merged[l] = _fold(x.base[l], x.a[l], x.b[l], x.scale)
+    return merged
+
+
 def _merged_shard(x: LoraWeight, stored):
     """This rank's shard of ``x``'s merged weight, a DTensor placed as
     ``stored`` (the base's stored DTensor): a stacked leaf's layers are
@@ -226,11 +240,13 @@ def _merged_shard(x: LoraWeight, stored):
 
 def merge_lora(params: Any) -> Any:
     """Fold every LoraWeight into a plain dense weight (PEFT
-    ``merge_and_unload``). Over a mesh every rank calls this: the merged
-    weight comes back as this rank's shard of it, placed as the stored
-    weight was, built one layer at a time (:func:`_merged_shard`), so a
-    rank holds its shards and one layer's whole fields and f32 transients
-    at a time."""
+    ``merge_and_unload``), a stacked leaf one layer at a time
+    (:func:`_merged_layers`), so the merge holds the merged weights and one
+    layer's f32 transients beside its input. Over a mesh every rank calls
+    this: the merged weight comes back as this rank's shard of it, placed as
+    the stored weight was, built one layer at a time
+    (:func:`_merged_shard`), so a rank holds its shards and one layer's
+    whole fields and f32 transients at a time."""
 
     @torch.no_grad()
     def leaf(_path, x):
@@ -239,7 +255,7 @@ def merge_lora(params: Any) -> Any:
         stored = x.base.q if isinstance(x.base, QuantizedTensor) else x.base
         if _is_dtensor(stored):
             return _merged_shard(x, stored)
-        return _fold(x.base, _whole(x.a), _whole(x.b), x.scale)
+        return _merged_layers(x)
 
     return _map_with_path(params, leaf)
 

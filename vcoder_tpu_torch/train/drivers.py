@@ -13,7 +13,8 @@ lacks (``models/vcoder.py::initialize_missing_modules``, whose random
 projectors come from a ``torch.Generator`` seeded with ``--seed``: other
 numbers than JAX's), wraps every decoder linear in fresh adapters for
 ``--lora-enable`` (under torchrun too: the adapters drawn whole, then
-sharded; ``final/`` merged leaf by leaf), builds the stage's COST / LLaVA-mix streams
+sharded; ``final/`` merged a layer at a time once the optimizer state
+is released), builds the stage's COST / LLaVA-mix streams
 (``train/datasets.py``), trains through ``Trainer`` (resuming from the
 newest ``checkpoint-*``), then writes a step checkpoint,
 ``adapters.safetensors`` and ``final/`` (LoRA merged) with the tokenizer.
@@ -252,8 +253,11 @@ def run_stage(stage: str, args):
         if lora_enable:
             # Fold the adapters into dense weights so final/ is a plain
             # checkpoint; adapters.safetensors keeps the unmerged a/b leaves.
+            # The optimizer state goes first: the merged tree is a second
+            # copy of the decoder's linears.
             from vcoder_tpu_torch.lora import merge_lora
 
+            trainer.release_state()
             final_params = merge_lora(final_params)
         final = os.path.join(args.output_dir, "final")
         save_pretrained(final, final_params, cfg)

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import glob
 import json
 import os
@@ -379,6 +380,18 @@ class Trainer:
         write_safetensors(out, trainable_leaves(self.params, self.args.stage))
         barrier()
         return out
+
+    def release_state(self) -> None:
+        """Drop what only further steps use -- the optimizer state and the
+        step function (with an offloaded step's staging buffers) -- and hand
+        the freed blocks back to the device; ``params`` stay. A driver calls
+        this before it builds another copy of the weights (the merged LoRA
+        tree of ``final/``)."""
+        self.opt_state = {}
+        self.step_fn = None
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     # ---- loop ----
 
