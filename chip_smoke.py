@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``vcoder_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py                  # every phase (1-4, 6, 7, 8, 9, 12, 5, 11a, 10,
-                                           # 11, 13, 14, 16, 17, 15)
+                                           # 11, 13, 14, 16, 17, 18, 15)
     python3 chip_smoke.py --profile        # also torch.profiler: two B=1 requests,
                                            # the paged engine's decode step at B=8,
                                            # in bf16, with int4/int8 weights and with
@@ -219,7 +219,10 @@ Phases, in order; any failure exits non-zero:
    ViT blocks and no other kernel; every shaped moment in pinned host
    memory and ``count`` on the card; the step checkpoint (every parameter
    and moment), ``adapters.safetensors`` and ``final/`` (``model_type``
-   ``llava``) written. Then an A/B through ``Trainer`` on the trained
+   ``llava``, 32 layers) written; and phase 18's memory gates at 7B (the
+   state's bytes, the host allocator's holding, host memory, the peak
+   estimate), the same function (``full_stage_cli``) running both. Then an
+   A/B through ``Trainer`` on the trained
    weights: 2 steps of B=1 with the moments resident, then from the same
    trainable leaves 2 steps offloaded; gated on bit-equal leaves and state
    (``bits_digest``), leaves that moved, the same launch gates, and an
@@ -273,6 +276,27 @@ Phases, in order; any failure exits non-zero:
    what it starts from within the merged weights plus
    ``MERGE_SLACK_GIB``. One ``phase17: {...}`` line holds step ms, valid
    tokens/s, peaks, load and merge seconds.
+18. The 13B full-LLM stage (``phase_full_13b``), in phase 16's directory
+   after phase 17: ``train.train``'s ``main`` with ``finetune.sh``'s flags
+   and ``--offload-opt-state`` from a llava-typed hard link, B=
+   ``FULL_BATCH_13B`` (the largest of 4, 2, 1 that fits the card:
+   ``scripts/phase18.py --find-full-batch``), ``FULL_STEPS_13B`` (3) steps,
+   the weight files through pipes (``full_stage_cli``, as phase 14). The 13.05 B trainable parameters' bf16
+   moments (48.6 GiB, ~66 GiB pinned) would not fit the card beside the
+   weights and gradients: the offload is what makes the stage run. Gates:
+   finite losses, non-zero ``lm/`` and ``mm_projector`` gradients every
+   step, per step 80 K1, 40 K6 and 23 ViT blocks and no other kernel,
+   every shaped moment pinned and ``count`` on the card, the state's bytes
+   equal to the reckoned moments (``full_stage_reckoning``) and the host
+   allocator's holding within 1% of its power-of-two reckoning, host memory
+   in use below the machine's, the peak at most ``full_peak_estimate_gib``,
+   the piped headers, ``final/`` a 40-layer llava, and once the state is
+   released its pinned blocks handed back (phase 15's rank needs the host
+   memory). One ``phase18: {...}``
+   line holds step ms, valid tokens/s, the update passes, pinning and load
+   seconds, the peak and the host readings. The same stage over four cards
+   (mesh (1, 4, 1), each rank's moments in its own pinned memory) is
+   ``scripts/phase18.py --mesh``'s, not this script's.
 15. The mesh, last (``phase_sharded``; alone ``scripts/multichip_phase.py``):
    in this process the one-device run on fresh 7B weights (the tower on
    its unfused blocks and the B=1 prefills on the attention route the
@@ -304,10 +328,10 @@ Phases, in order; any failure exits non-zero:
 
 The card machine's disk takes ~45 GiB of writes a run (deleted files
 count); phase 10's directory takes 13.5 of them and phase 16's 13B
-directory ~25: phases 13, 14 and 17 write
+directory ~25: phases 13, 14, 17 and 18 write
 their weight files (step checkpoint, adapters, ``final/model.safetensors``)
-through named pipes into reader threads that check each header and byte
-count (``piped_weights``); their small files are written as files.
+into pipes, in-process sinks that check each header and byte count and
+write nothing (``piped_weights``); their small files are written as files.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -4286,84 +4310,77 @@ def phase_slot_engine(cfg, params, model, preps, device="cuda", quantized=True) 
 
 # The card machine's disk takes ~45 GiB of writes a run, deleted files
 # included, and phase 10's checkpoint directory already writes 13.5 GiB: the
-# training stages' weight files (a 7B step checkpoint is 14-41 GB) go
-# through named pipes into reader threads that check what arrives.
+# training stages' weight files (a 13B step checkpoint is 79 GB) go into
+# pipes, in-process sinks that keep the header and count the bytes.
 PIPED_WEIGHTS = ("checkpoint-{steps}/state.safetensors.tmp", "adapters.safetensors",
                  "final/model.safetensors")
 
 
-@contextlib.contextmanager
-def piped_weights(out: str, steps: int):
-    """A named pipe at each of a stage's weight-file paths under ``out``
-    (``PIPED_WEIGHTS``; the stage writes and renames them as it would files),
-    each drained by a thread that keeps the safetensors header and counts
-    the bytes. The pipes are made when a ``Trainer``'s ``maybe_resume``
-    returns (made earlier, the step checkpoint's directory would look like
-    one to resume from). Yields {name: {"header", "header_len", "bytes"}},
-    filled as each writer closes; on exit a pipe no writer opened is closed
-    empty."""
-    import fcntl
-    import threading
+class _WeightPipe:
+    """A weight file's stand-in for its writer: ``write`` keeps the first
+    64 MiB (the safetensors header and then some) and counts the bytes; the
+    data goes nowhere. On close it files {"header", "header_len", "bytes",
+    "s"} (``s``: from the writer's open to its close) under its name."""
 
-    from vcoder_tpu_torch.train import trainer as trainer_mod
+    def __init__(self, name: str, results: dict):
+        self.name, self.results = name, results
+        self.head, self.n, self.t0 = bytearray(), 0, time.perf_counter()
 
-    names = [n.format(steps=steps) for n in PIPED_WEIGHTS]
-    results, threads = {}, {}
+    def write(self, b) -> int:
+        mv = memoryview(b).cast("B")
+        room = (64 << 20) - len(self.head)
+        if room > 0:
+            self.head += mv[:room]
+        self.n += mv.nbytes
+        return mv.nbytes
 
-    def drain(name, path):
-        with open(path, "rb", buffering=0) as f:
-            try:
-                fcntl.fcntl(f.fileno(), fcntl.F_SETPIPE_SZ, 1 << 20)
-            except OSError:
-                pass
-            buf = bytearray()
-            n = 0
-            while True:
-                b = f.read(1 << 20)
-                if not b:
-                    break
-                n += len(b)
-                if len(buf) < (64 << 20):
-                    buf += b
+    def close(self) -> None:
         header, k = None, 0
-        if len(buf) >= 8:
-            (k,) = struct.unpack("<Q", bytes(buf[:8]))
-            if len(buf) >= 8 + k:
+        if len(self.head) >= 8:
+            (k,) = struct.unpack("<Q", bytes(self.head[:8]))
+            if len(self.head) >= 8 + k:
                 try:
-                    header = json.loads(bytes(buf[8:8 + k]))
+                    header = json.loads(bytes(self.head[8:8 + k]))
                 except ValueError:
                     pass
-        results[name] = dict(header=header, header_len=k, bytes=n)
+        self.results[self.name] = dict(header=header, header_len=k, bytes=self.n,
+                                       s=time.perf_counter() - self.t0)
 
-    def make_pipes():
-        for name in names:
-            path = os.path.join(out, name)
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            os.mkfifo(path)
-            threads[name] = threading.Thread(target=drain, args=(name, path), daemon=True)
-            threads[name].start()
+    def __enter__(self):
+        return self
 
-    resume = trainer_mod.Trainer.maybe_resume
+    def __exit__(self, *exc) -> None:
+        self.close()
 
-    def resume_then_pipe(self):
-        resumed = resume(self)
-        if not threads:
-            make_pipes()
-        return resumed
 
-    trainer_mod.Trainer.maybe_resume = resume_then_pipe
+@contextlib.contextmanager
+def piped_weights(out: str, steps: int):
+    """Each of a stage's weight files under ``out`` (``PIPED_WEIGHTS``)
+    written into a :class:`_WeightPipe` instead of the disk: the port's
+    ``checkpoint.write_safetensors`` opens it through that module's
+    ``open``, and an empty file stands at its path, so the stage's renames
+    and existence checks find it as they would the file. Yields {name:
+    {"header", "header_len", "bytes", "s"}}, filled as each writer closes;
+    a file no writer opened is missing from it."""
+    from vcoder_tpu_torch import checkpoint
+
+    names = {os.path.abspath(os.path.join(out, n.format(steps=steps))): n.format(steps=steps)
+             for n in PIPED_WEIGHTS}
+    results = {}
+
+    def pipe_open(path, mode="r", *a, **kw):
+        name = names.get(os.path.abspath(path))
+        if name is None or "w" not in mode:
+            return open(path, mode, *a, **kw)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        open(path, "wb").close()
+        return _WeightPipe(name, results)
+
+    checkpoint.open = pipe_open
     try:
         yield results
     finally:
-        trainer_mod.Trainer.maybe_resume = resume
-        for name, t in threads.items():
-            while t.is_alive():
-                for path in (os.path.join(out, name), os.path.join(out, name[:-4])):
-                    try:
-                        os.close(os.open(path, os.O_WRONLY | os.O_NONBLOCK))
-                    except OSError:
-                        pass
-                t.join(timeout=0.1)
+        del checkpoint.open
 
 
 def piped_gate(label: str, got: dict, keys: dict) -> dict:
@@ -4432,9 +4449,10 @@ def make_train_tree(root: str) -> None:
 def timed_train_steps(records: list, device: str = "cuda", first=None):
     """Time every step of the ``Trainer``s built inside the block: each step
     appends ``ms`` (CUDA events around the step on the card, the host clock
-    on the CPU), the batch's ``T`` and valid ``tokens``, the per-leaf
-    gradient ``norms``, and for an offloaded step its stager's ``copies``
-    (``StateStager.pop_stats``: H2D, D2H and update ms, the pass's wall).
+    on the CPU), the batch's ``T`` and valid ``tokens``, the step's ``loss``
+    and ``grad_norm``, the per-leaf gradient ``norms``, and for an offloaded
+    step its stager's ``copies`` (``StateStager.pop_stats``: H2D, D2H and
+    update ms, the pass's wall).
     ``first(params)`` runs before the first step."""
     import torch
 
@@ -4461,7 +4479,8 @@ def timed_train_steps(records: list, device: str = "cuda", first=None):
             else:
                 ms = (time.perf_counter() - t0) * 1e3
             rec = dict(ms=ms, T=int(batch["safe_ids"].shape[1]),
-                       tokens=int(batch["attn_mask"].sum()),
+                       tokens=int(batch["attn_mask"].sum()), loss=float(res[2]["loss"]),
+                       grad_norm=float(res[2]["grad_norm"]),
                        norms={k: float(v) for k, v in res[2]["leaf_grad_norms"].items()})
             if inner.stager is not None:
                 rec["copies"] = inner.stager.pop_stats()
@@ -4525,36 +4544,42 @@ def timed_loads(laps: dict, device: str = "cuda"):
         builder.load_pretrained_model = load
 
 
-def _drive_stage(main_fn, argv: list, out: str, steps: int, device: str, first=None) -> dict:
+def _drive_stage(main_fn, argv: list, out: str, steps: int, device: str, first=None,
+                 piped: bool = True, outputs: bool = True) -> dict:
     """A stage driver's ``main(argv)`` in this process, its weight files
-    through pipes, every step timed (``first`` as :func:`timed_train_steps`
-    takes it), the counters read from 0 and the peak of allocated device
-    memory from the load on. Returns the trainer, the steps' records, the
-    counts, the pipes' readings and sizes, ``metrics.jsonl``,
-    ``final/config.json``, the wall and the load's seconds."""
+    through pipes (``piped``; else written as files), every step timed
+    (``first`` as :func:`timed_train_steps` takes it), the counters read
+    from 0 and the peak of allocated device memory from the load on.
+    Returns the trainer, the steps' records, the counts, the pipes' readings
+    and sizes, and with ``outputs`` (the process that writes them)
+    ``metrics.jsonl`` and ``final/config.json``; the wall and the load's
+    seconds."""
     import gc
 
     import torch
 
     records, laps = [], {}
     gc.collect()
-    if device == "cuda":
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     _reset_counters()
     t0 = time.perf_counter()
-    with piped_weights(out, steps) as piped, timed_train_steps(records, device, first), \
-            timed_loads(laps, device):
+    pipes = piped_weights(out, steps) if piped else contextlib.nullcontext({})
+    with pipes as got, timed_train_steps(records, device, first), timed_loads(laps, device):
         trainer = main_fn(argv)
     _sync(device)
-    res = dict(trainer=trainer, records=records, counts=_counters(), piped=piped,
+    res = dict(trainer=trainer, records=records, counts=_counters(), piped=got,
                wall=time.perf_counter() - t0, load_s=laps.get("load_s", float("nan")),
-               peak=torch.cuda.max_memory_allocated() if device == "cuda" else float("nan"))
-    with open(os.path.join(out, "metrics.jsonl")) as f:
-        res["metrics"] = [json.loads(line) for line in f]
-    with open(os.path.join(out, "final", "config.json")) as f:
-        res["final_config"] = json.load(f)
-    res["sizes"] = piped_gate(main_fn.__module__, piped, piped_train_keys(trainer))
+               peak=torch.cuda.max_memory_allocated() if cuda else float("nan"), sizes={})
+    if outputs:
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            res["metrics"] = [json.loads(line) for line in f]
+        with open(os.path.join(out, "final", "config.json")) as f:
+            res["final_config"] = json.load(f)
+    if piped:
+        res["sizes"] = piped_gate(main_fn.__module__, got, piped_train_keys(trainer))
     return res
 
 
@@ -4733,10 +4758,13 @@ def bits_digest(tensors: dict, device: str = "cuda") -> str:
     return h.hexdigest()[:16]
 
 
-def _train_gate(label: str, records: list, counts: dict, steps: int) -> None:
+def _train_gate(label: str, records: list, counts: dict, steps: int, layers: int = 32,
+                vit: int = 23, launches: bool = True) -> None:
     """Phase 14's per-step gates: finite losses, non-zero gradients on the
-    ``lm/`` leaves and on ``mm_projector``, and per step 64 K1, 32 K6 and 23
-    ViT blocks and no other kernel."""
+    ``lm/`` leaves and on ``mm_projector``, and (``launches``) per step ``2
+    x layers`` K1, ``layers`` K6 and ``vit`` ViT blocks (64, 32 and 23 at 7B
+    on one card; the tower takes its unfused blocks under a mesh) and no
+    other kernel."""
     bad = []
     if len(records) != steps:
         bad.append(f"{len(records)} steps, want {steps}")
@@ -4745,9 +4773,9 @@ def _train_gate(label: str, records: list, counts: dict, steps: int) -> None:
         mm = max(v for k, v in r["norms"].items() if k.startswith("mm_projector/"))
         if not (lm > 0 and mm > 0 and np.isfinite(list(r["norms"].values())).all()):
             bad.append(f"step {i + 1}: lm/ grad norm {lm}, mm_projector {mm}")
-    want = dict(flash=64 * steps, flash_bwd=32 * steps, vit=23 * steps, mlp=0, k8=0, paged=0,
-                int4=0, int8=0, int8_scaled=0)
-    if counts != want:
+    want = dict(flash=2 * layers * steps, flash_bwd=layers * steps, vit=vit * steps, mlp=0, k8=0,
+                paged=0, int4=0, int8=0, int8_scaled=0)
+    if launches and counts != want:
         bad.append(f"launches {counts} != {want}")
     if bad:
         raise SystemExit(f"full stage {label}: " + "; ".join(bad))
@@ -4763,7 +4791,15 @@ def _copies_line(r: dict) -> str:
             f"of the {serial:.1f} overlapped")
 
 
-def full_stage_ab(trainer, device: str, tmp: str) -> dict:
+def _locals(tensors: dict) -> dict:
+    """Each tensor as this process holds it: a DTensor's local shard, a
+    plain tensor as is."""
+    from torch.distributed.tensor import DTensor
+
+    return {k: t.to_local() if isinstance(t, DTensor) else t for k, t in tensors.items()}
+
+
+def full_stage_ab(trainer, tmp: str, vit: int = 23, launches: bool = True) -> dict:
     """Phase 14's A/B: from the stage's trained weights, ``AB_STEPS`` steps
     of B=``AB_BATCH`` through ``Trainer`` with the moments resident, then
     from the same starting trainable leaves (restored from a host copy) the
@@ -4771,7 +4807,10 @@ def full_stage_ab(trainer, device: str, tmp: str) -> dict:
     trainable leaves and the whole optimizer state bit-equal (a digest of
     every bit), the leaves moved, and the offloaded peak of allocated device
     memory at least ``MOMENT_CUT`` x the moments' bytes below the resident
-    one."""
+    one. Over a distributed mesh (the trainer's) each rank runs this on its
+    shards: the digests, the moments' bytes and the peaks are its own. The
+    launch gates (:func:`_train_gate`) count the model's layers and ``vit``
+    ViT blocks a step, and gate only with ``launches``."""
     import gc
 
     import torch
@@ -4780,10 +4819,12 @@ def full_stage_ab(trainer, device: str, tmp: str) -> dict:
     from vcoder_tpu_torch.train.trainer import TrainArgs, Trainer
 
     cfg, params, dataset, mesh = trainer.cfg, trainer.params, trainer.dataset, trainer.mesh
+    device = trainer.device
+    cuda = device.type == "cuda"
     # The stage's state goes: its pinned blocks return to the host
     # allocator's cache, where the offloaded run takes them again.
     trainer.release_state()
-    leaves = trainable_leaves(params, "full")
+    leaves = _locals(trainable_leaves(params, "full"))
     start = {p: t.detach().to("cpu", copy=True) for p, t in leaves.items()}
     start_digest = bits_digest(leaves, device)
     runs = {}
@@ -4795,30 +4836,32 @@ def full_stage_ab(trainer, device: str, tmp: str) -> dict:
                          per_device_train_batch_size=AB_BATCH, save_steps=10**9,
                          offload_opt_state=mode == "offloaded")
         gc.collect()
-        if device == "cuda":
+        if cuda:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         _reset_counters()
         records = []
-        with timed_train_steps(records, device):
+        with timed_train_steps(records, device.type):
             tr = Trainer(cfg, params, dataset, args, mesh=mesh, device=device)
             hist = tr.train(max_steps=AB_STEPS)
         _sync(device)
         counts = _counters()
-        peak = torch.cuda.max_memory_allocated() if device == "cuda" else float("nan")
-        _train_gate(f"A/B {mode}", records, counts, AB_STEPS)
-        state = tr.opt_state
+        peak = torch.cuda.max_memory_allocated() if cuda else float("nan")
+        _train_gate(f"A/B {mode}", records, counts, AB_STEPS, cfg.text.num_layers, vit,
+                    launches)
+        state = _locals(tr.opt_state)
         moments = sum(t.numel() * t.element_size() for k, t in state.items()
                       if k.startswith(("mu/", "nu/")))
         runs[mode] = dict(peak=peak, records=records, counts=counts, moments=moments,
                           losses=[h["loss"] for h in hist],
-                          params=bits_digest(trainable_leaves(tr.params, "full"), device),
+                          params=bits_digest(_locals(trainable_leaves(tr.params, "full")),
+                                             device),
                           state=bits_digest(state, device),
                           where=sorted({f"{t.device.type}{'/pinned' if t.is_pinned() else ''}"
                                         for t in state.values() if t.ndim}))
         del tr, state
         gc.collect()
-        if device == "cuda":
+        if cuda:
             torch.cuda.empty_cache()
     res, off = runs["resident"], runs["offloaded"]
     for mode, r in runs.items():
@@ -4833,7 +4876,7 @@ def full_stage_ab(trainer, device: str, tmp: str) -> dict:
         bad.append("the offloaded step's leaves or state differ from the resident step's")
     if res["params"] == start_digest:
         bad.append("no trainable leaf moved")
-    if device == "cuda":
+    if cuda:
         cut = res["peak"] - off["peak"]
         if off["where"] != ["cpu/pinned"] or cut < MOMENT_CUT * off["moments"]:
             bad.append(f"offloaded state in {off['where']}, peak {cut / 2**30:.2f} GiB below the "
@@ -4847,91 +4890,25 @@ def full_stage_ab(trainer, device: str, tmp: str) -> dict:
         f"{off['moments'] / 2**30:.2f} GiB); step {AB_STEPS} {ms['offloaded']:.1f} ms offloaded "
         f"against {ms['resident']:.1f} resident (+{ms['offloaded'] - ms['resident']:.1f} ms)")
     return dict(counts={k: res["counts"][k] + off["counts"][k] for k in res["counts"]},
-                peak_resident=res["peak"], peak_offloaded=off["peak"], ms=ms)
+                peak_resident=res["peak"], peak_offloaded=off["peak"], ms=ms,
+                moments=off["moments"])
 
 
 def phase_full_stage(ckpt: str, device: str = "cuda", turns: int = LLAVA_TURNS) -> dict:
-    """Phase 14: the LLaVA full finetune as
-    ``scripts/v1_5/train_torch/finetune.sh`` runs it, with
-    ``--offload-opt-state``, from a plain-LLaVA directory written beside the
-    VCoder-DS directory ``ckpt`` (:func:`write_llava_dir`) over a
-    LLaVA-format JSON of the repo's photos (:func:`make_llava_json`, of
-    ``turns`` turns): ``train.train``'s ``main`` in this process (so the
-    launch counters can be read), B=``FULL_BATCH``, ``--model-max-length
-    2048``, ``--max-steps 4``, lr 2e-5, its weight files through pipes
-    (:func:`piped_weights`). Gates: 4 finite losses; non-zero ``lm/`` and
-    ``mm_projector`` gradient norms every step; per step 64 K1, 32 K6 and 23
-    ViT blocks and no other kernel; every shaped moment in host memory
-    (pinned on a card) and ``count`` on the device; the step checkpoint
-    (every parameter and moment), ``adapters.safetensors`` and ``final/``
-    (``model_type`` ``llava``) written. Then :func:`full_stage_ab`. Logs step
-    ms, valid tokens/s, peak device memory, host RSS and pinned bytes, and
-    each step's copy times."""
+    """Phase 14: the LLaVA full finetune at 7B, :func:`full_stage_cli` from
+    the VCoder-DS directory ``ckpt`` at B=``FULL_BATCH``, ``FULL_STEPS``
+    steps, with its gates; then :func:`full_stage_ab` on the trained
+    weights. Returns the launch counts and the readings."""
     import gc
 
     import torch
 
-    from vcoder_tpu_torch.train import train as train_mod
-
     t_phase = time.perf_counter()
-    here = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="vcoder_full_stage_")
     try:
-        base = os.path.join(tmp, LLAVA_DIR)
-        write_llava_dir(base, ckpt)
-        data, out = os.path.join(tmp, "llava.json"), os.path.join(tmp, "out")
-        make_llava_json(data, turns=turns)
-        argv = ["--stage", "full", "--model-path", base, "--data-path", data,
-                "--image-folder", here, "--output-dir", out, "--learning-rate", "2e-5",
-                "--num-train-epochs", "1", "--per-device-train-batch-size", str(FULL_BATCH),
-                "--model-max-length", "2048", "--max-steps", str(FULL_STEPS),
-                "--offload-opt-state", "--device", device]
-        res = _drive_stage(train_mod.main, argv, out, FULL_STEPS, device)
-        trainer, records, metrics, counts, wall, peak, sizes = (res[k] for k in (
-            "trainer", "records", "metrics", "counts", "wall", "peak", "sizes"))
-        final_type = res["final_config"].get("model_type")
-        del res
-        state = trainer.opt_state
-        host = {k: t for k, t in state.items() if t.ndim}
-        pinned = sum(t.numel() * t.element_size() for t in host.values())
-        placed = (all(t.device.type == "cpu" and (t.is_pinned() or device != "cuda")
-                      for t in host.values())
-                  and state["count"].device.type == torch.device(device).type
-                  and set(host) == {k for k in state if k != "count"})
-        rss = _rss_gib()
-        host_stats = ({k: v for k, v in torch.cuda.host_memory_stats().items()
-                       if "bytes" in k and ".current" in k}
-                      if device == "cuda" and hasattr(torch.cuda, "host_memory_stats") else {})
-        for m, r in zip(metrics, records):
-            lm = max(v for k, v in r["norms"].items() if k.startswith("lm/"))
-            mm = max(v for k, v in r["norms"].items() if k.startswith("mm_projector/"))
-            log(f"  full stage step {m['step']}: T={r['T']} B={FULL_BATCH}, {r['tokens']} "
-                f"tokens, {r['ms']:.1f} ms, {r['tokens'] / r['ms'] * 1e3:.0f} tokens/s, loss "
-                f"{m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, lm/ grad norm (largest "
-                f"leaf) {lm:.4g}, mm_projector {mm:.4g}; {_copies_line(r)}")
-        bad = []
-        if len(metrics) != FULL_STEPS or not all(
-                np.isfinite([m["loss"], m["grad_norm"]]).all() for m in metrics):
-            bad.append(f"{len(metrics)} metrics lines or a non-finite loss")
-        if not placed:
-            bad.append("a shaped moment off the (pinned) host, or count off the device")
-        if final_type != "llava":
-            bad.append(f"final/config.json model_type {final_type!r}")
-        if bad:
-            raise SystemExit("full stage: " + "; ".join(bad))
-        _train_gate("CLI", records, counts, FULL_STEPS)
-        ms_p50 = float(np.median([r["ms"] for r in records[1:]]))
-        tok_s = float(np.median([r["tokens"] / r["ms"] * 1e3 for r in records[1:]]))
-        n_train = sum(t.numel() for k, t in host.items() if k.startswith("mu/"))
-        log(f"  full stage: {n_train / 1e9:.4g} B trainable parameters, moments "
-            f"{pinned / 2**30:.2f} GiB in {'pinned ' if device == 'cuda' else ''}host memory; "
-            f"train.main {wall:.1f} s (load, {FULL_STEPS} steps, checkpoint, adapters, final/; "
-            f"written through pipes, GiB {json.dumps(sizes)}); steps 2-{FULL_STEPS} p50 "
-            f"{ms_p50:.1f} ms, {tok_s:.0f} valid tokens/s; peak {peak / 2**30:.2f} GiB "
-            f"allocated; host RSS {rss:.2f} GiB, host allocator {json.dumps(host_stats)}; "
-            f"launches {json.dumps(counts)}; final/config.json model_type {final_type}")
-        del state, host
-        ab = full_stage_ab(trainer, device, tmp)
+        trainer, got = full_stage_cli("14", ckpt, tmp, LLAVA_DIR, FULL_BATCH, FULL_STEPS, device,
+                                      turns)
+        ab = full_stage_ab(trainer, tmp)
         del trainer
         gc.collect()
         if device == "cuda":
@@ -4939,9 +4916,11 @@ def phase_full_stage(ckpt: str, device: str = "cuda", turns: int = LLAVA_TURNS) 
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"  phase 14 {time.perf_counter() - t_phase:.1f} s")
+    counts = got["counts"]
     total = {k: counts[k] + ab["counts"][k] for k in counts}
     return dict(flash=total["flash"], flash_bwd=total["flash_bwd"], vit=total["vit"],
-                step_ms_p50=ms_p50, tokens_s=tok_s, peak=peak, pinned=pinned, **ab)
+                step_ms_p50=got["step_ms_p50"], tokens_s=got["tokens_s"],
+                peak=got["peak_gib"] * 2**30, pinned=got["pinned_gib"] * 2**30, **ab)
 
 
 # ---------------------------------------------------------------------------
@@ -5591,9 +5570,7 @@ def phase_13b(disk_gib: float, then=None) -> dict:
     gib = lambda x: round(x / 2**30, 2)  # noqa: E731
     gc.collect()
     torch.cuda.empty_cache()
-    empty_host = getattr(torch._C, "_host_emptyCache", None)
-    if empty_host is not None:  # pinned blocks the offloaded stage left cached
-        empty_host()
+    _host_empty_cache()  # pinned blocks the offloaded stage left cached
     log(f"  before the phase: {gib(torch.cuda.memory_allocated())} GiB allocated (no 7B tree "
         f"held), host RSS {_rss_gib():.1f} GiB")
     cfg, params, model, tok = build_model("13b")
@@ -6021,6 +5998,533 @@ def phase_train_13b(ckpt: str, device: str = "cuda") -> dict:
     return {k: a["counts"][k] + b["counts"][k] for k in ("flash", "flash_bwd", "vit")}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the 13B full-LLM stage with the Adam moments offloaded, in phase
+# 16's 13B directory (alone: scripts/phase18.py; over four cards:
+# scripts/phase18.py --mesh)
+# ---------------------------------------------------------------------------
+
+# Three steps, not phase 14's four: the cut that keeps the whole run inside
+# its time (PERF.md section 4).
+FULL_STEPS_13B = 3
+# The largest of 4, 2, 1 whose offloaded 13B step fits an 80 GB card, as
+# ``scripts/phase18.py --find-full-batch`` finds it (PERF.md).
+FULL_BATCH_13B = 2
+# One row's saved products at T=2048 under remat "dots", from phase 14 at
+# 7B: its B=4 peak of 50.56 GiB less 13.15 GiB of weights, 12.59 of
+# gradients and the largest gradient's per-layer transient (2.69) leaves
+# 5.53 GiB a row. A row's products scale with ``_row_units``.
+ROW_GIB_7B = 5.53
+# Headroom of a peak estimate over its reckoning: the loss's f32 logits and
+# what the allocator rounds.
+PEAK_SLACK_GIB = 2.0
+# Under a mesh each layer's weights are gathered whole for the forward and
+# again for its recomputation, and their gradients come whole before the
+# reduce-scatter: at most this many copies of one layer's weights at once.
+GATHERED_LAYER_COPIES = 4
+# Four cards, mesh (1, 4, 1): the recipe's ZeRO-3 + offload layout
+# (scripts/zero3_offload.json), every rank its quarter of the weights,
+# gradients and moments. The per-device batch is the largest of these that
+# runs.
+MESH_FSDP = 4
+MESH_BATCHES = (4, 2, 1)
+MESH_STEPS = 4
+
+
+def _row_units(text) -> int:
+    """A decoder's saved products per token under remat "dots": every
+    layer's q, k, v and o outputs (4 x hidden), gate and up (2 x
+    intermediate) and down (hidden)."""
+    return text.num_layers * (5 * text.hidden_size + 2 * text.intermediate_size)
+
+
+def _local_shape(path: str, shape, fsdp: int) -> tuple:
+    """This rank's shard of a leaf over a mesh (1, ``fsdp``, 1), by
+    ``parallel/sharding.py``'s rules (a dimension ``fsdp`` does not divide
+    stays whole, as ``_shrink_to_fit`` has it)."""
+    from vcoder_tpu_torch.parallel.sharding import spec_for_path
+
+    spec = spec_for_path(path)
+    if len(spec) > len(shape):
+        return tuple(shape)
+    out = []
+    for dim, names in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        names = (names,) if isinstance(names, str) else (names or ())
+        out.append(dim // fsdp if "fsdp" in names and dim % fsdp == 0 else dim)
+    return tuple(out)
+
+
+def full_stage_reckoning(cfg, fsdp: int = 1) -> dict:
+    """The full stage's memory at ``cfg`` (a llava config, bf16 weights) on
+    one rank of a mesh (1, ``fsdp``, 1), reckoned from the leaves' shapes
+    alone, in bytes: ``weights`` (the whole tree, the tower included),
+    ``grads`` (every trainable leaf's gradient: ``torch.autograd.grad`` holds
+    them all at once), ``moments`` (Adam's ``mu`` and ``nu`` in the
+    parameters' dtype, as ``AdamW.init`` makes them: 4 bytes a trainable
+    parameter), ``holding`` (what PyTorch's caching host allocator takes to
+    pin them: each ``torch.empty(..., pin_memory=True)`` rounded up to a
+    power of two), ``largest`` (the largest gradient, made whole at each
+    layer's backward), ``layer`` (one decoder layer's weights, whole),
+    ``resident`` (weights, gradients and moments on the card at once, before
+    any activation) and ``row`` (one row's saved products at T=2048, scaled
+    from 7B's ``ROW_GIB_7B``); ``trainable`` counts the trainable
+    parameters."""
+    import torch
+
+    from vcoder_tpu_torch.config import VCoderConfig
+    from vcoder_tpu_torch.models.vcoder import build_vcoder_params
+    from vcoder_tpu_torch.train.step import trainable_leaves
+    from vcoder_tpu_torch.tree import named_leaves
+
+    meta = build_vcoder_params(cfg, torch.Generator(), dtype=torch.bfloat16, device="meta")
+    train = trainable_leaves(meta, "full")
+    local = {p: int(np.prod(_local_shape(p, t.shape, fsdp))) * t.element_size()
+             for p, t in named_leaves(meta)}
+    t7 = VCoderConfig.standard("llava", "7b").text
+    rk = dict(weights=sum(local.values()), grads=sum(local[p] for p in train),
+              moments=2 * sum(local[p] for p in train),
+              holding=2 * sum(1 << (local[p] - 1).bit_length() for p in train),
+              largest=max(local[p] for p in train),
+              layer=sum(t[0].numel() * t.element_size() for t in meta["lm"]["layers"].values()),
+              row=ROW_GIB_7B * 2**30 * _row_units(cfg.text) / _row_units(t7),
+              trainable=sum(t.numel() for t in train.values()))
+    rk["resident"] = rk["weights"] + rk["grads"] + rk["moments"]
+    return rk
+
+
+def full_peak_estimate_gib(rk: dict, batch: int, fsdp: int = 1) -> float:
+    """The offloaded step's peak of allocated device memory at ``batch``
+    rows a device, from :func:`full_stage_reckoning`'s ``rk``: the weights,
+    every gradient, the largest gradient's per-layer transient and the rows'
+    saved products, all held when the backward starts, plus
+    ``PEAK_SLACK_GIB``; under a mesh (``fsdp`` > 1) also
+    ``GATHERED_LAYER_COPIES`` whole layers."""
+    gathered = GATHERED_LAYER_COPIES * rk["layer"] if fsdp > 1 else 0
+    return ((rk["weights"] + rk["grads"] + rk["largest"] + gathered + batch * rk["row"]) / 2**30
+            + PEAK_SLACK_GIB)
+
+
+def _meminfo_gib(field: str = "MemTotal") -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(field + ":"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def _host_empty_cache() -> None:
+    """Hand the caching host allocator's free pinned blocks back to the
+    system."""
+    import torch
+
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None and torch.cuda.is_available():
+        empty()
+
+
+def _host_holding() -> dict:
+    """The caching host allocator's byte counters (empty without CUDA)."""
+    import torch
+
+    if not (torch.cuda.is_available() and hasattr(torch.cuda, "host_memory_stats")):
+        return {}
+    return {k: v for k, v in torch.cuda.host_memory_stats().items() if "bytes" in k}
+
+
+@contextlib.contextmanager
+def timed_pinning(laps: dict):
+    """The seconds of the ``Placement.zeros`` calls made inside the block
+    (the offloaded state's host zeros, pinned on a card) summed into
+    ``laps["pin_s"]``, and the host RSS just before the first and just
+    after the last (``rss_before_pin``, ``rss_after_pin``)."""
+    from vcoder_tpu_torch.parallel import sharding
+
+    zeros = sharding.Placement.zeros
+
+    def timed(self, t):
+        laps.setdefault("rss_before_pin", _rss_gib())
+        t0 = time.perf_counter()
+        try:
+            return zeros(self, t)
+        finally:
+            laps["pin_s"] = laps.get("pin_s", 0.0) + time.perf_counter() - t0
+            laps["rss_after_pin"] = _rss_gib()
+
+    sharding.Placement.zeros = timed
+    try:
+        yield laps
+    finally:
+        sharding.Placement.zeros = zeros
+
+
+def _host_state(trainer, device) -> tuple:
+    """The offloaded state's (this rank's) shaped leaves' bytes, and
+    whether every one lies in host memory (pinned on a card) with ``count``
+    on the device. Holds no reference to the state: its pinned blocks go
+    once the trainer releases it."""
+    import torch
+
+    dev = torch.device(device).type
+    state = _locals(trainer.opt_state)
+    host = {k: t for k, t in state.items() if t.ndim}
+    placed = (all(t.device.type == "cpu" and (t.is_pinned() or dev != "cuda")
+                  for t in host.values())
+              and state["count"].device.type == dev
+              and set(host) == {k for k in state if k != "count"})
+    return sum(t.numel() * t.element_size() for t in host.values()), placed
+
+
+def _host_reading(laps: dict, holding: int) -> dict:
+    """Host memory once the state is pinned: RSS, whether the pinned pages
+    show in it (RSS grew by at least half the holding while pinning), the
+    memory in use counting each byte once (RSS, plus the holding when it
+    does not show there) and the machine's (``/proc/meminfo``)."""
+    rss = _rss_gib()
+    grew = laps.get("rss_after_pin", rss) - laps.get("rss_before_pin", rss)
+    in_rss = bool(grew >= 0.5 * holding / 2**30)
+    return dict(rss_gib=round(rss, 2), rss_grew_gib=round(grew, 2), pinned_in_rss=in_rss,
+                used_gib=round(rss + (0.0 if in_rss else holding / 2**30), 2),
+                total_gib=round(_meminfo_gib(), 2))
+
+
+def _stage_argv(base: str, data: str, out: str, batch: int, steps: int, device: str) -> list:
+    """``finetune.sh``'s flags for ``train.train``: the full stage with the
+    moments offloaded, lr 2e-5, T up to 2048; ``steps`` steps of ``batch``
+    rows a device and one step checkpoint (the last)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return ["--stage", "full", "--model-path", base, "--data-path", data, "--image-folder", here,
+            "--output-dir", out, "--learning-rate", "2e-5", "--num-train-epochs", "1",
+            "--per-device-train-batch-size", str(batch), "--model-max-length", "2048",
+            "--max-steps", str(steps), "--save-steps", str(steps), "--offload-opt-state",
+            "--device", device]
+
+
+def full_stage_cli(label: str, ckpt: str, tmp: str, name: str, batch: int, steps: int,
+                   device: str, turns: int) -> tuple:
+    """The LLaVA full finetune as ``scripts/v1_5/train_torch/finetune.sh``
+    runs it with ``--offload-opt-state``, from ``tmp/name``, a llava-typed
+    hard link of the VCoder-DS directory ``ckpt`` (:func:`write_llava_dir`),
+    over :func:`make_llava_json`'s conversations of ``turns`` turns:
+    ``train.train``'s ``main`` in this process (so the launch counters can
+    be read), B=``batch``, ``steps`` steps (:func:`_stage_argv`), every
+    weight file through pipes (:func:`piped_weights`). Gates: finite losses;
+    non-zero ``lm/`` and ``mm_projector`` gradient norms every step; per step
+    2L K1, L K6 and 23 ViT blocks and no other kernel; every shaped moment
+    in host memory (pinned on a card) and ``count`` on the device; the
+    state's bytes equal to :func:`full_stage_reckoning`'s moments and (on a
+    card) the host allocator's holding within 1% of its rounded holding;
+    host memory in use below the machine's; (on a card) the peak of
+    allocated device memory at most :func:`full_peak_estimate_gib`; the
+    pipes' headers and byte counts; ``final/config.json`` a llava of L
+    layers. Logs each step (ms, valid tokens/s, its update pass), the
+    seconds loading and pinning, each piped file's seconds, and the resident
+    bytes reckoned for the card. Returns the trainer (its state still held)
+    and the readings; the caller releases the state."""
+    import torch
+
+    from vcoder_tpu_torch.config import VCoderConfig
+    from vcoder_tpu_torch.train import train as train_mod
+
+    cuda = torch.device(device).type == "cuda"
+    gib = 2**30
+    base = os.path.join(tmp, name)
+    write_llava_dir(base, ckpt)
+    with open(os.path.join(base, "config.json")) as f:
+        cfg = VCoderConfig.from_hf_config(json.load(f))
+    L = cfg.text.num_layers
+    rk = full_stage_reckoning(cfg)
+    estimate = full_peak_estimate_gib(rk, batch)
+    log(f"  {label}: train.train --stage full --offload-opt-state from {name} (a hard link), "
+        f"B={batch}, {steps} steps; reckoned: {rk['trainable'] / 1e9:.4g} B trainable, moments "
+        f"{rk['moments'] / gib:.2f} GiB (pinned holding {rk['holding'] / 1e9:.2f} GB), peak "
+        f"estimate {estimate:.2f} GiB; resident, the weights, gradients and moments alone would "
+        f"take {rk['resident'] / gib:.2f} GiB of the card (reckoned, not run)")
+    data, out = os.path.join(tmp, "llava.json"), os.path.join(tmp, "out")
+    make_llava_json(data, turns=turns)
+    laps = {}
+    with timed_pinning(laps):
+        res = _drive_stage(train_mod.main, _stage_argv(base, data, out, batch, steps, device),
+                           out, steps, device)
+    trainer, records, metrics, counts = (res[k] for k in ("trainer", "records", "metrics",
+                                                          "counts"))
+    pinned, placed = _host_state(trainer, device)
+    stats = _host_holding()
+    holding = stats.get("allocated_bytes.current", 0)
+    mem = _host_reading(laps, holding)
+    for m, r in zip(metrics, records):
+        lm = max(v for k, v in r["norms"].items() if k.startswith("lm/"))
+        mm = max(v for k, v in r["norms"].items() if k.startswith("mm_projector/"))
+        log(f"  full stage step {m['step']}: T={r['T']} B={batch}, {r['tokens']} tokens, "
+            f"{r['ms']:.1f} ms, {r['tokens'] / r['ms'] * 1e3:.0f} tokens/s, loss "
+            f"{m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, lm/ grad norm (largest leaf) "
+            f"{lm:.4g}, mm_projector {mm:.4g}; {_copies_line(r)}")
+    bad = _final_gate(res, "llava", L)
+    if len(metrics) != steps or not all(
+            np.isfinite([m["loss"], m["grad_norm"]]).all() for m in metrics):
+        bad.append(f"{len(metrics)} metrics lines or a non-finite loss")
+    if not placed:
+        bad.append("a shaped moment off the (pinned) host, or count off the device")
+    if pinned != rk["moments"]:
+        bad.append(f"the state holds {pinned} B, the reckoned moments {rk['moments']} B")
+    if cuda and abs(holding - rk["holding"]) > 0.01 * rk["holding"]:
+        bad.append(f"the host allocator holds {holding} B, reckoned {rk['holding']} B")
+    if not mem["used_gib"] < mem["total_gib"]:
+        bad.append(f"host memory in use {mem['used_gib']} GiB, the machine's "
+                   f"{mem['total_gib']}")
+    if cuda and not res["peak"] <= estimate * gib:
+        bad.append(f"peak {res['peak'] / gib:.2f} GiB over the estimate {estimate:.2f}")
+    ms_p50 = float(np.median([r["ms"] for r in records[1:]]))
+    tok_s = float(np.median([r["tokens"] / r["ms"] * 1e3 for r in records[1:]]))
+    log(f"  {label}: peak {res['peak'] / gib:.2f} GiB allocated (estimate {estimate:.2f}); "
+        f"state {pinned / gib:.2f} GiB in {'pinned ' if cuda else ''}host memory (reckoned "
+        f"{rk['moments'] / gib:.2f}), host allocator {json.dumps(stats)} (reckoned holding "
+        f"{rk['holding']} B), pinning {laps.get('pin_s', float('nan')):.1f} s; host "
+        f"{json.dumps(mem)}; load {res['load_s']:.1f} s, train.main {res['wall']:.1f} s (load, "
+        f"pinning, {steps} steps, checkpoint, adapters, final/); steps 2-{steps} p50 "
+        f"{ms_p50:.1f} ms, {tok_s:.0f} valid tokens/s; written through pipes (GiB) "
+        f"{json.dumps(res['sizes'])} in (s) "
+        f"{json.dumps({k: round(v['s'], 1) for k, v in res['piped'].items()})}; launches "
+        f"{json.dumps(counts)}; final/config.json model_type "
+        f"{res['final_config'].get('model_type')}")
+    if bad:
+        raise SystemExit(f"{label}: " + "; ".join(bad))
+    _train_gate(label, records, counts, steps, L)
+    got = dict(B=batch, T=records[0]["T"], losses=[m["loss"] for m in metrics],
+               step_ms_p50=ms_p50, tokens_s=tok_s, peak_gib=res["peak"] / gib,
+               estimate_gib=estimate, pinned_gib=pinned / gib, holding=holding,
+               reckoned_holding=rk["holding"], host=mem, pin_s=laps.get("pin_s"),
+               load_s=res["load_s"], train_main_s=res["wall"],
+               update_ms=[round(r["copies"]["wall"], 1) for r in records if r.get("copies")],
+               files_gib=res["sizes"], counts=counts)
+    return trainer, got
+
+
+def phase_full_13b(ckpt: str, device: str = "cuda", batch: int = FULL_BATCH_13B,
+                   turns: int = LLAVA_TURNS) -> dict:
+    """Phase 18: the LLaVA full finetune at 13B, :func:`full_stage_cli`
+    from phase 16's 13B directory ``ckpt`` at B=``batch``,
+    ``FULL_STEPS_13B`` steps, with its gates (the card cannot hold the
+    state resident, so no A/B). Once the state is released, its pinned
+    blocks go back to the system: the host allocator must hold under 1% of
+    them after (the phases after this one, the mesh's ranks, need the host
+    memory). Returns the launch counts and the readings."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="vcoder_full_13b_")
+    try:
+        trainer, got = full_stage_cli("18", ckpt, tmp, LLAVA_DIR_13B, batch, FULL_STEPS_13B,
+                                      device, turns)
+        trainer.release_state()
+        del trainer
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+            _host_empty_cache()  # the pinned blocks go back to the system
+    got["held_after"] = _host_holding().get("allocated_bytes.current", 0)
+    if got["held_after"] > 0.01 * got["reckoned_holding"]:
+        raise SystemExit(f"18: the host allocator still holds {got['held_after']} B of pinned "
+                         f"memory after the state was released")
+    got["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase18: {json.dumps(got, default=float)}")
+    return got
+
+
+def full_mesh_reference(argv: list, world: int, micro: int, device: str = "cuda") -> dict:
+    """Step 1 of the stage ``argv`` runs over ``world`` ranks, on one
+    device: the global batch the ranks' sampler draws (``world`` x the
+    per-device batch rows, padded to one bucket) through the loaded weights
+    in micro-batches of ``micro`` rows, on the routes a mesh takes (the
+    tower's unfused blocks, the flash route on each micro-batch's rows);
+    each micro-batch's loss weighted by its share of the global batch's
+    valid labels, as the ranks' loss weights their rows, and the gradients
+    summed in f32 in host memory. Returns the loss, the global gradient norm
+    and each trainable leaf's."""
+    import gc
+
+    import torch
+
+    from vcoder_tpu_torch import builder
+    from vcoder_tpu_torch.constants import IGNORE_INDEX
+    from vcoder_tpu_torch.models import clip
+    from vcoder_tpu_torch.models import vcoder as model_mod
+    from vcoder_tpu_torch.train import drivers
+    from vcoder_tpu_torch.train import train as train_mod
+    from vcoder_tpu_torch.train.step import trainable_leaves
+    from vcoder_tpu_torch.train.trainer import TrainArgs, epoch_batches
+
+    args = train_mod.build_parser().parse_args(argv)
+    tok, model, *_ = builder.load_pretrained_model(args.model_path, device=device)
+    cfg, params = model.config, model.params
+    targs = TrainArgs(per_device_train_batch_size=args.per_device_train_batch_size,
+                      seed=args.seed, group_by_modality_length=args.group_by_modality_length,
+                      dataloader_workers=0)
+    dataset = drivers.build_dataset(args.stage, args, tok, cfg)
+    with contextlib.closing(epoch_batches(cfg, dataset, targs, 0, device=device,
+                                          world=world)) as batches:
+        batch = next(batches)
+    rows = batch["labels"].shape[0]
+    count = (batch["labels"][:, 1:] != IGNORE_INDEX).sum()
+    leaves = trainable_leaves(params, args.stage)
+    acc = {p: torch.zeros(t.shape, dtype=torch.float32) for p, t in leaves.items()}
+    loss_sum = 0.0
+    clip.FUSED_BLOCKS = False
+    try:
+        for t in leaves.values():
+            t.requires_grad_(True)
+        for a in range(0, rows, micro):
+            mb = {k: v[a * (v.shape[0] // rows):(a + micro) * (v.shape[0] // rows)]
+                  if isinstance(v, torch.Tensor) and v.ndim else v for k, v in batch.items()}
+            loss = model_mod.train_forward(params, cfg, mb, mb.get("images"),
+                                           remat="dots" if args.gradient_checkpointing else False)
+            part = loss * ((mb["labels"][:, 1:] != IGNORE_INDEX).sum() / count)
+            grads = torch.autograd.grad(part, list(leaves.values()))
+            loss_sum += float(part.detach())
+            for p, g in zip(leaves, grads):
+                acc[p].add_(g.cpu())
+            del loss, part, grads
+    finally:
+        clip.FUSED_BLOCKS = True
+        for t in leaves.values():
+            t.requires_grad_(False)
+    norms = {p: float(a.square().sum()) for p, a in acc.items()}
+    out = dict(loss=loss_sum, grad_norm=float(np.sqrt(sum(norms.values()))),
+               norms={p: float(np.sqrt(v)) for p, v in norms.items()}, rows=rows,
+               T=int(batch["safe_ids"].shape[1]), tokens=int(batch["attn_mask"].sum()))
+    del model, params, leaves, acc, batch
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def full_mesh_rank(rank: int, world: int, argv: list, piped: bool = True) -> dict:
+    """One rank of the full stage over a mesh (``scripts/phase18.py
+    --mesh``, one NCCL rank a card; gloo ranks in the CPU tests): the stage
+    ``argv`` (``train.train``'s flags with ``--mesh-*``) through its ``main``
+    under the group, as a torchrun rank runs it, rank 0's weight files
+    through pipes when ``piped``; then :func:`full_stage_ab` on this rank's
+    shards (its launch gates on a card only: the CPU's routes
+    launch nothing). Returns this rank's readings (no tensor)."""
+    import torch
+
+    from vcoder_tpu_torch.train import train as train_mod
+
+    args = train_mod.build_parser().parse_args(argv)
+    device, out, steps = args.device, args.output_dir, args.max_steps
+    laps = {}
+    with timed_pinning(laps):
+        res = _drive_stage(train_mod.main, argv, out, steps, device, piped=piped and rank == 0,
+                           outputs=rank == 0)
+    trainer = res["trainer"]
+    pinned, placed = _host_state(trainer, device)
+    holding = _host_holding().get("allocated_bytes.current", 0)
+    reading = dict(
+        rank=rank, mesh=dict(trainer.mesh.shape), layers=trainer.cfg.text.num_layers,
+        records=[{k: r[k] for k in ("ms", "T", "tokens", "loss", "grad_norm", "norms", "copies")
+                  if k in r} for r in res["records"]],
+        counts=res["counts"], peak=res["peak"], pinned=pinned, placed=placed, holding=holding,
+        host=_host_reading(laps, holding), pin_s=laps.get("pin_s"), load_s=res["load_s"],
+        wall=res["wall"], sizes=res["sizes"], final_config=res.get("final_config"),
+        reckoned=full_stage_reckoning(trainer.cfg, trainer.mesh.shape["fsdp"]),
+        device=str(trainer.device))
+    del res
+    with tempfile.TemporaryDirectory() as tmp:
+        reading["ab"] = full_stage_ab(trainer, tmp, vit=0,
+                                      launches=torch.device(device).type == "cuda")
+    trainer.release_state()
+    del trainer
+    if torch.device(device).type == "cuda":
+        _host_empty_cache()
+    return reading
+
+
+def full_mesh_gates(ranks: list, ref: dict, batch: int, steps: int) -> tuple:
+    """The four-card run's gates over every rank's readings
+    (:func:`full_mesh_rank`) against the one-device reference
+    (:func:`full_mesh_reference`): every rank the same losses and gradient
+    norms; step 1's loss within ``SHARDED_LOSS_REL`` and its global
+    gradient norm within ``SHARDED_NORM_REL`` of the reference; per rank and
+    step 2L K1, L K6, no ViT block (the tower runs its unfused blocks under a
+    mesh) and no other kernel, and non-zero ``lm/`` and ``mm_projector``
+    gradients; each rank's state in pinned host memory, its bytes its shards'
+    (:func:`full_stage_reckoning` at the mesh's ``fsdp``: a quarter of the
+    moments, the replicated norms and biases whole); each rank's peak at most
+    its :func:`full_peak_estimate_gib`; rank 0's ``final/`` a llava of L
+    layers; the host memory the ranks use below the machine's. Returns a
+    summary and the failures."""
+    bad = []
+    r0 = ranks[0]
+    L = r0["layers"]
+    keys = lambda r: [(x["loss"], x["grad_norm"], x["norms"]) for x in r["records"]]  # noqa: E731
+    for r in ranks[1:]:
+        if keys(r) != keys(r0):
+            bad.append(f"rank {r['rank']}'s losses or gradient norms differ from rank 0's")
+    first = r0["records"][0] if r0["records"] else {}
+    loss_rel = abs(first.get("loss", np.nan) - ref["loss"]) / abs(ref["loss"])
+    norm_rel = abs(first.get("grad_norm", np.nan) - ref["grad_norm"]) / ref["grad_norm"]
+    if not loss_rel <= SHARDED_LOSS_REL or not norm_rel <= SHARDED_NORM_REL:
+        bad.append(f"step 1 loss {first.get('loss')} vs {ref['loss']} (rel {loss_rel:.3e}, bound "
+                   f"{SHARDED_LOSS_REL}), grad norm {first.get('grad_norm')} vs "
+                   f"{ref['grad_norm']} (rel {norm_rel:.3e}, bound {SHARDED_NORM_REL})")
+    leaf_rel = {p: abs(first["norms"][p] - v) / v for p, v in ref["norms"].items() if v} \
+        if first else {}
+    used = 0.0
+    for r in ranks:
+        label = f"rank {r['rank']}"
+        cuda = r["device"].startswith("cuda")
+        try:
+            _train_gate(label, r["records"], r["counts"], steps, L, vit=0)
+        except SystemExit as e:
+            bad.append(str(e))
+        if not r["placed"]:
+            bad.append(f"{label}: a shaped moment off the (pinned) host, or count off the device")
+        if r["pinned"] != r["reckoned"]["moments"]:
+            bad.append(f"{label}: state {r['pinned']} B, its shards' moments "
+                       f"{r['reckoned']['moments']} B")
+        estimate = full_peak_estimate_gib(r["reckoned"], batch, r["mesh"]["fsdp"])
+        r["estimate_gib"] = estimate
+        if cuda and not r["peak"] <= estimate * 2**30:
+            bad.append(f"{label}: peak {r['peak'] / 2**30:.2f} GiB over its estimate "
+                       f"{estimate:.2f}")
+        used += r["host"]["used_gib"]
+    fc = r0.get("final_config") or {}
+    if (fc.get("model_type"), fc.get("num_hidden_layers")) != ("llava", L):
+        bad.append(f"rank 0's final/config.json: {fc.get('model_type')}, "
+                   f"{fc.get('num_hidden_layers')} layers")
+    total = r0["host"]["total_gib"]
+    if not used < total:
+        bad.append(f"the ranks' host memory in use {used:.2f} GiB, the machine's {total}")
+    # A rank's records count its own rows' tokens: the mesh's are their sum.
+    ms = [x["ms"] for x in r0["records"][1:]] or [np.nan]
+    tok = [sum(r["records"][i]["tokens"] for r in ranks) / r0["records"][i]["ms"] * 1e3
+           for i in range(1, len(r0["records"]))] or [np.nan]
+    summary = dict(
+        B=batch, global_rows=ref["rows"], T=ref["T"], steps=steps,
+        losses=[round(x["loss"], 5) for x in r0["records"]],
+        step1=dict(loss=first.get("loss"), ref_loss=ref["loss"], loss_rel=loss_rel,
+                   grad_norm=first.get("grad_norm"), ref_grad_norm=ref["grad_norm"],
+                   norm_rel=norm_rel,
+                   leaf_norm_rel_max=max(leaf_rel.items(), key=lambda kv: kv[1], default=None)),
+        step_ms_p50=float(np.median(ms)), tokens_s_p50=float(np.median(tok)),
+        update=[_copies_line(x) for x in r0["records"]],
+        peak_gib=[round(r["peak"] / 2**30, 2) for r in ranks],
+        estimate_gib=[round(r["estimate_gib"], 2) for r in ranks],
+        state_gib=[round(r["pinned"] / 2**30, 3) for r in ranks],
+        holding_gb=[round(r["holding"] / 1e9, 2) for r in ranks],
+        host=[r["host"] for r in ranks], host_used_gib=round(used, 2),
+        pin_s=[r["pin_s"] for r in ranks], load_s=[round(r["load_s"], 1) for r in ranks],
+        train_main_s=[round(r["wall"], 1) for r in ranks], files_gib=r0["sizes"],
+        ab=[{k: r["ab"][k] for k in ("peak_resident", "peak_offloaded", "ms", "moments")}
+            for r in ranks],
+        counts=[r["counts"] for r in ranks])
+    return summary, bad
+
+
 def main() -> int:
     import torch
 
@@ -6116,10 +6620,19 @@ def main() -> int:
     p10 = phase_surfaces(cfg, held, tok10, main_counts["requests"], then=in_checkpoint_dir)
     lap("surfaces_cost_eval_train_stages")
     log("VCoder-DS-13B (phase 16): B=1 generate, engines A13, E13 and D13, a 13B directory; "
-        "then 13B training in it (phase 17)")
-    p17 = {}
-    p16 = phase_13b(p10["written_gib"], then=lambda d: p17.update(phase_train_13b(d)))
-    lap("13b")
+        "then 13B training in it (phases 17 and 18)")
+    p17, p18 = {}, {}
+
+    def in_13b_dir(d):
+        p17.update(phase_train_13b(d))
+        lap("13b_serving_and_training")
+        log(f"13B full-LLM stage (phase 18): train.train --stage full --offload-opt-state over "
+            f"{LLAVA_DIR_13B}, B={FULL_BATCH_13B}")
+        p18.update(phase_full_13b(d))
+        lap("13b_full_stage")
+
+    p16 = phase_13b(p10["written_gib"], then=in_13b_dir)
+    lap("13b_cleanup")
     p15 = phase_sharded()
     lap("sharded")
     launches["flash_fwd"] += p10["flash"] + p11["flash"] + p13["flash"] + p14["flash"]
@@ -6146,6 +6659,10 @@ def main() -> int:
     launches["flash_fwd_train"] += p17["flash"]
     launches["flash_bwd"] += p17["flash_bwd"]
     launches["vit_block"] += p17["vit"]
+    launches["flash_fwd"] += p18["counts"]["flash"]
+    launches["flash_fwd_train"] += p18["counts"]["flash"]
+    launches["flash_bwd"] += p18["counts"]["flash_bwd"]
+    launches["vit_block"] += p18["counts"]["vit"]
     for entry in report:
         entry["launches"] = launches[entry["name"]]
     log(f"launches on the driven paths: {json.dumps(launches)}")

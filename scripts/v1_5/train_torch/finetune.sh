@@ -3,6 +3,8 @@
 # One process on one device; DEVICE=cpu runs the port on the CPU.
 # Memory-tight cards: add --offload-opt-state (the zero3_offload.json
 # analog -- the Adam moments pinned in host memory, streamed per step).
+# 13B: MODEL_PATH=<a llava-v1.5-13b base> BATCH_SIZE=2 with --offload-opt-state on one
+# card, or under torchrun (--nproc-per-node 4 ... --mesh-fsdp 4 --offload-opt-state).
 DEVICE=${DEVICE:-cuda}
 python -m vcoder_tpu_torch.train.train --stage full \
     --model-path ${MODEL_PATH:-checkpoints/llava-v1.5-7b-pretrain} \

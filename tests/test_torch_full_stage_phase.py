@@ -46,10 +46,12 @@ def tiny():
 @pytest.fixture
 def card_counts(tiny, monkeypatch):
     """The card's launch counts for the steps run since the last reset
-    (64 K1, 32 K6 and 23 ViT blocks a step); ``wrong`` adds to one."""
+    (2L K1, L K6 and 23 ViT blocks a step: 64, 32 and 23 at 7B); ``wrong``
+    adds to one."""
     from vcoder_tpu_torch.train import trainer as trainer_mod
 
-    chip_smoke = tiny[0]
+    chip_smoke, cfg = tiny[:2]
+    L = cfg.text.num_layers
     steps, wrong = [0], {}
     make = trainer_mod.make_train_step
 
@@ -65,7 +67,7 @@ def card_counts(tiny, monkeypatch):
 
     def counters():
         n = steps[0]
-        c = dict(flash=64 * n, flash_bwd=32 * n, vit=23 * n, mlp=0, k8=0, paged=0, int4=0,
+        c = dict(flash=2 * L * n, flash_bwd=L * n, vit=23 * n, mlp=0, k8=0, paged=0, int4=0,
                  int8=0, int8_scaled=0)
         return {k: v + wrong.get(k, 0) for k, v in c.items()}
 
@@ -130,10 +132,11 @@ def test_llava_json_fills_the_2048_bucket(tiny, tmp_path):
 
 def test_phase14_on_a_tiny_model(tiny, tmp_path, card_counts, capsys):
     """One-turn conversations keep the tiny rows short on the CPU."""
-    chip_smoke = tiny[0]
+    chip_smoke, cfg = tiny[:2]
+    L = cfg.text.num_layers
     got = chip_smoke.phase_full_stage(_ds_dir(tiny, tmp_path), device="cpu", turns=1)
     steps = chip_smoke.FULL_STEPS + 2 * chip_smoke.AB_STEPS
-    assert (got["flash"], got["flash_bwd"], got["vit"]) == (64 * steps, 32 * steps, 23 * steps)
+    assert (got["flash"], got["flash_bwd"], got["vit"]) == (2 * L * steps, L * steps, 23 * steps)
     out = capsys.readouterr().out
     assert "A/B: leaves and state bit-equal" in out and "model_type llava" in out
     assert out.count("full stage step") == chip_smoke.FULL_STEPS

@@ -155,6 +155,27 @@ def build_entries(stage: str, args):
     return entries, True, True
 
 
+def build_dataset(stage: str, args, tokenizer, cfg):
+    """The stage's ``VCoderDataset`` over :func:`build_entries`, as
+    :func:`run_stage` trains on it."""
+    from vcoder_tpu_torch.train.datasets import VCoderDataset
+
+    entries, use_seg, use_depth = build_entries(stage, args)
+    return VCoderDataset(
+        entries,
+        tokenizer,
+        image_folder=args.image_folder,
+        seg_data_path=args.seg_data_path,
+        depth_data_path=args.depth_data_path or args.seg_data_path,
+        image_size=cfg.vision.image_size,
+        image_aspect_ratio=args.image_aspect_ratio,
+        version=args.version,
+        model_max_length=args.model_max_length,
+        use_seg=use_seg,
+        use_depth=use_depth,
+    )
+
+
 def run_stage(stage: str, args):
     """Train one stage from ``args`` (:func:`build_arg_parser`'s) and write
     its outputs under ``args.output_dir``. Returns the ``Trainer``."""
@@ -167,7 +188,6 @@ def run_stage(stage: str, args):
     from vcoder_tpu_torch.parallel import use_mesh
     from vcoder_tpu_torch.parallel.mesh import rank_zero
     from vcoder_tpu_torch.parallel.sharding import leaf_sharder
-    from vcoder_tpu_torch.train.datasets import VCoderDataset
     from vcoder_tpu_torch.train.trainer import TrainArgs, Trainer
 
     mesh, device = stage_mesh(args)
@@ -207,20 +227,7 @@ def run_stage(stage: str, args):
                                 place=leaf_sharder(mesh))
         train_stage = "lora" if stage == "full" else "it_lora"
 
-    entries, use_seg, use_depth = build_entries(stage, args)
-    dataset = VCoderDataset(
-        entries,
-        tokenizer,
-        image_folder=args.image_folder,
-        seg_data_path=args.seg_data_path,
-        depth_data_path=args.depth_data_path or args.seg_data_path,
-        image_size=cfg.vision.image_size,
-        image_aspect_ratio=args.image_aspect_ratio,
-        version=args.version,
-        model_max_length=args.model_max_length,
-        use_seg=use_seg,
-        use_depth=use_depth,
-    )
+    dataset = build_dataset(stage, args, tokenizer, cfg)
     targs = TrainArgs(
         output_dir=args.output_dir,
         stage=train_stage,

@@ -97,6 +97,17 @@ def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+def sq_sum(t: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of squares of ``t``'s elements, taken over axis-0 chunks
+    of at most ``OFFLOAD_CHUNK_BYTES`` (``chunk_rows``) when ``t`` is larger:
+    no f32 copy of a whole stacked leaf is made (a 13B ``gate_proj``
+    gradient would take 10.5 GiB). A tensor of one chunk is summed whole."""
+    rows = chunk_rows(t)
+    if len(rows) == 1:
+        return t.float().square().sum()
+    return sum(t[r].float().square().sum() for r in rows)
+
+
 def sharded_sq_sums(tensors) -> torch.Tensor:
     """[n] f32: each tensor's global sum of squares, from one all-reduce of
     the local sums over the whole group. A rank adds a shard only when it is
@@ -110,7 +121,7 @@ def sharded_sq_sums(tensors) -> torch.Tensor:
     for t in tensors:
         owner = all(m.device_mesh.get_local_rank(i) == 0 for i, p in enumerate(
             t.placements if isinstance(t, DTensor) else [None] * 3) if p is None or not p.is_shard())
-        local = _local(t).float().square().sum()
+        local = sq_sum(_local(t))
         sums.append(local if owner else torch.zeros_like(local))
     out = torch.stack(sums)
     dist.all_reduce(out)
@@ -123,7 +134,7 @@ def global_norm(tensors) -> torch.Tensor:
     tensors = list(tensors)
     if spmd.mesh() is not None:
         return torch.sqrt(sharded_sq_sums(tensors).sum())
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    return torch.sqrt(sum(sq_sum(t) for t in tensors))
 
 
 class AdamW:
